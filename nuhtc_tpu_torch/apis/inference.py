@@ -1,41 +1,63 @@
-"""Inference engine (port of nuhtc_tpu/apis/inference.py, WSI-mode path).
+"""Inference engine (port of nuhtc_tpu/apis/inference.py).
 
 ``init_detector`` builds the detector from a config, with weights from a
 reference-format ``.pth`` state dict or, without one, random weights made
-from a seed. ``InferenceEngine`` uploads uint8 tiles, resizes (half-pixel
-bilinear) and normalizes them on the device, zeroes the pad band, runs the
-detector and pastes all detections of a tile into one int32 instance label
-map (``compact_masks``); ``collect`` unpads per-image results on the host.
+from a seed. ``InferenceEngine`` serves two contracts:
+
+- the strict patch path (the defaults, as in the JAX package): tiles are
+  resized (``cv2.INTER_LINEAR`` arithmetic), normalized and padded on the
+  host (``data.pipelines.preprocess_test_image``), and every detection
+  comes back with its own full-frame binary mask (``ops.mask_paste.paste_masks``);
+- WSI mode (``device_preprocess=True, compact_masks=True``): uint8 tiles
+  are uploaded, resized (half-pixel bilinear) and normalized on the device,
+  and all detections of a tile are pasted into one int32 instance label map.
+
+``dispatch`` enqueues a batch, ``collect`` waits for the device, downloads
+and unpads per-image results on the host. ``TTAEngine`` adds flip test-time
+augmentation on top of an engine.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from nuhtc_tpu.config import Config
+from nuhtc_tpu_torch.config import Config
+from nuhtc_tpu_torch.data.pipelines import IMG_NORM, preprocess_test_image
 from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
 from nuhtc_tpu_torch.ops.components import resize_half_pixel
-from nuhtc_tpu_torch.ops.mask_paste import paste_label_map
-
-# reference img_norm_cfg (RGB)
-IMG_NORM = dict(mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375))
+from nuhtc_tpu_torch.ops.mask_paste import paste_label_map, paste_masks as paste_fn
 
 
 class InferenceEngine:
-    def __init__(self, model, batch_size: int = 8, tile_size: int = 256):
-        """``model``: a NuHTC module, already on its device and dtype. The
-        engine runs the WSI-mode path: device preprocessing of uint8 tiles
-        and compact label maps."""
+    def __init__(self, model, batch_size: int = 8, tile_size: int = 256,
+                 scale_factor: Optional[float] = None, paste_masks: bool = True,
+                 device_preprocess: bool = False, compact_masks: bool = False):
+        """``model``: a NuHTC module, already on its device and dtype.
+        ``device_preprocess``: upload uint8 tiles and resize + normalize on
+        the device. ``compact_masks``: one int32 instance label map per tile
+        instead of N full-frame masks (overlapping pixels go to the
+        higher-scoring detection). ``paste_masks``: without compact masks,
+        paste each detection's mask into the tile frame on the device; when
+        off, results carry the raw 28×28 ``mask_probs`` instead."""
         self.model = model.eval()
         self.batch_size = batch_size
         self.tile_size = tile_size
-        self.scale_factor = float(model.scale_factor)
+        # from the model unless overridden: a mismatch would return boxes in
+        # the wrong frame (the model divides by its own scale_factor)
+        self.scale_factor = (scale_factor if scale_factor is not None
+                             else float(getattr(model, "scale_factor", 2.0)))
         self.num_classes = model.num_classes
+        self.paste_masks = paste_masks and not compact_masks
+        self.device_preprocess = device_preprocess
+        self.compact_masks = compact_masks
         param = next(model.parameters())
         self.device, self.dtype = param.device, param.dtype
+        # cumulative collect() attribution; callers read and reset it
+        self.collect_timing = {"device_s": 0.0, "download_s": 0.0}
 
     @property
     def resized_size(self) -> int:
@@ -44,6 +66,16 @@ class InferenceEngine:
     @property
     def input_size(self) -> int:
         return ((self.resized_size + 31) // 32) * 32  # Pad(size_divisor=32)
+
+    def preprocess(self, imgs: Sequence[np.ndarray]) -> np.ndarray:
+        """RGB uint8 images (tile_size²) → padded normalized f32 batch."""
+        if len(imgs) > self.batch_size:
+            raise ValueError(f"{len(imgs)} images for a batch of {self.batch_size}")
+        out = np.zeros((self.batch_size, self.input_size, self.input_size, 3), np.float32)
+        for i, im in enumerate(imgs):
+            t = preprocess_test_image(im, self.scale_factor)
+            out[i, :t.shape[0], :t.shape[1]] = t
+        return out
 
     def preprocess_u8(self, imgs: Sequence[np.ndarray]):
         """uint8 tiles → ((B, tile, tile, 3) uint8 batch, resized extents
@@ -81,37 +113,80 @@ class InferenceEngine:
         syncs inside the proposal stages (NMS and component fixpoints) make
         this partly blocking on the card."""
         n = len(imgs)
-        batch, hs, ws = self.preprocess_u8(imgs)
-        x = torch.from_numpy(batch).to(self.device, non_blocking=True)
-        hs_t = torch.from_numpy(hs).to(self.device)
-        ws_t = torch.from_numpy(ws).to(self.device)
-        det = self.model(self._prep(x, hs_t, ws_t))
+        if self.device_preprocess:
+            batch, hs, ws = self.preprocess_u8(imgs)
+            x = torch.from_numpy(batch).to(self.device, non_blocking=True)
+            x = self._prep(x, torch.from_numpy(hs).to(self.device),
+                           torch.from_numpy(ws).to(self.device))
+        else:
+            x = torch.from_numpy(self.preprocess(imgs)).to(self.device).to(self.dtype)
+        det = self.model(x)
         t = self.tile_size
-        det["label_map"] = paste_label_map(
-            det.pop("mask_probs"), det["boxes"], det["valid"], (t, t),
-            threshold=self.model.mask_thr_binary)
-        return det, n
+        thr = self.model.mask_thr_binary
+        pasted = None
+        if self.compact_masks:
+            det["label_map"] = paste_label_map(det.pop("mask_probs"), det["boxes"], det["valid"],
+                                               (t, t), threshold=thr)
+        elif self.paste_masks:
+            # per image: (D, 28, 28) probs + boxes in the tile frame → (D, t, t) u8
+            pasted = torch.stack([paste_fn(m, b, (t, t), threshold=thr)
+                                  for m, b in zip(det["mask_probs"], det["boxes"])])
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return det, pasted, n, done
 
     def collect(self, handle) -> List[Dict[str, np.ndarray]]:
-        det, n = handle
-        return self._split_results({k: v.cpu().numpy() for k, v in det.items()}, n)
+        det, pasted, n, done = handle
+        # 1) device wait, apart from 2) the bulk download
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        t1 = time.perf_counter()
+        if pasted is not None:
+            pasted = pasted.cpu().numpy()
+        # masks come back in the pasted tensor: the raw probs stay behind
+        det = {k: v.float().cpu().numpy() if v.dtype == torch.bfloat16 else v.cpu().numpy()
+               for k, v in det.items() if not (k == "mask_probs" and pasted is not None)}
+        t2 = time.perf_counter()
+        self.collect_timing["device_s"] += t1 - t0
+        self.collect_timing["download_s"] += t2 - t1
+        return self._split_results(det, pasted, n)
 
     def run_batch(self, imgs: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Per-image dicts: boxes (n, 4) in the tile frame, scores, labels,
         probs, masks (n, tile, tile) uint8."""
         return self.collect(self.dispatch(imgs))
 
-    def _split_results(self, det, n) -> List[Dict[str, np.ndarray]]:
+    def _split_results(self, det, pasted, n) -> List[Dict[str, np.ndarray]]:
         results = []
         for i in range(n):
             valid = det["valid"][i]
-            ids = np.nonzero(valid)[0]
-            results.append(dict(
-                boxes=det["boxes"][i][valid], scores=det["scores"][i][valid],
-                labels=det["labels"][i][valid], probs=det["probs"][i][valid],
-                masks=(det["label_map"][i][None] == (ids + 1)[:, None, None]).astype(np.uint8),
-            ))
+            r = dict(boxes=det["boxes"][i][valid], scores=det["scores"][i][valid],
+                     labels=det["labels"][i][valid], probs=det["probs"][i][valid])
+            if "mask_probs" in det:
+                r["mask_probs"] = det["mask_probs"][i][valid]
+            if self.compact_masks:
+                ids = np.nonzero(valid)[0]
+                r["masks"] = (det["label_map"][i][None] == (ids + 1)[:, None, None]
+                              ).astype(np.uint8)
+            elif pasted is not None:
+                r["masks"] = pasted[i][valid]
+            results.append(r)
         return results
+
+    def to_reference_format(self, result: Dict[str, np.ndarray]) -> Tuple[List, List]:
+        """→ (bbox_results [C × (n, 5)], segm_results [C × [mask, ...]]), the
+        result contract the reference's tools parse."""
+        bboxes, segms = [], []
+        for c in range(self.num_classes):
+            sel = result["labels"] == c
+            arr = np.concatenate([result["boxes"][sel], result["scores"][sel][:, None]],
+                                 axis=1).astype(np.float32)
+            bboxes.append(arr)
+            segms.append([m for m in result["masks"][sel]] if "masks" in result else [])
+        return bboxes, segms
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
@@ -128,26 +203,124 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
 def init_detector(config: str | Config, checkpoint: Optional[str] = None,
                   batch_size: int = 8, dtype: Optional[torch.dtype] = None,
                   device: Optional[str | torch.device] = None,
-                  device_preprocess: bool = True, compact_masks: bool = True,
-                  tile_size: int = 256) -> InferenceEngine:
-    """``dtype`` defaults to bf16 on CUDA and f32 on the CPU; ``device`` to
-    the first CUDA device when there is one. Without a checkpoint the
-    weights are random, from seed 0. The port runs the WSI-mode path only,
-    so ``device_preprocess`` and ``compact_masks`` must be True."""
-    if not (device_preprocess and compact_masks):
-        raise ValueError("init_detector: the port supports device_preprocess=True "
-                         "with compact_masks=True only")
+                  device_preprocess: bool = False, compact_masks: bool = False,
+                  scale_factor: Optional[float] = None, tile_size: int = 256,
+                  swin_kernel: str = "block") -> InferenceEngine:
+    """``device`` None means the first CUDA device, and raises when there is
+    none: the CPU is taken only when asked for (``device="cpu"``). ``dtype``
+    defaults to bf16 on CUDA and f32 on the CPU. Without a checkpoint the
+    weights are random, from seed 0. ``scale_factor`` overrides the config's
+    test rescale; it is baked into the model so boxes come back in the tile
+    frame. ``swin_kernel``: the Swin block's kernel tier on CUDA, "block"
+    (K1), "attn" (K2) or "none"."""
     cfg = Config.fromfile(config) if isinstance(config, str) else config
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_detector: no CUDA device; pass device=\"cpu\" to run "
+                               "on the CPU")
+        device = "cuda:0"
+    device = torch.device(device)
     dtype = dtype or (torch.bfloat16 if device.type == "cuda" else torch.float32)
     # f32 products stay f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    scale_factor = float(cfg.get("scale_factor", 2.0))
-    model = build_detector(cfg.model, cfg.model.get("test_cfg"), scale_factor)
+    if scale_factor is None:
+        scale_factor = float(cfg.get("scale_factor", 2.0))
+    model = build_detector(cfg.model, cfg.model.get("test_cfg"), scale_factor,
+                           swin_kernel=swin_kernel)
     if checkpoint:
         load_reference_checkpoint(model, checkpoint)
     else:
         init_random_weights(model, torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=dtype).eval()
-    return InferenceEngine(model, batch_size=batch_size, tile_size=tile_size)
+    return InferenceEngine(model, batch_size=batch_size, tile_size=tile_size,
+                           scale_factor=scale_factor, device_preprocess=device_preprocess,
+                           compact_masks=compact_masks)
+
+
+class TTAEngine:
+    """Flip test-time augmentation: detections from each flipped view are
+    mapped back to the original frame and merged with mask-NMS."""
+
+    def __init__(self, engine: InferenceEngine, flips=("none", "horizontal", "vertical")):
+        self.engine = engine
+        self.flips = flips
+
+    @staticmethod
+    def _flip_img(img, d):
+        if d == "horizontal":
+            return np.ascontiguousarray(img[:, ::-1])
+        if d == "vertical":
+            return np.ascontiguousarray(img[::-1])
+        return img
+
+    def _unflip(self, res, d, h, w):
+        if d == "none":
+            return res
+        boxes = res["boxes"].copy()
+        masks = res.get("masks")
+        # masks are pasted in the tile frame; flip only the image extent
+        # (cols [0:w] / rows [0:h]) so they stay aligned with the unflipped
+        # boxes when the image is smaller than the tile
+        if d == "horizontal":
+            boxes[:, [0, 2]] = w - res["boxes"][:, [2, 0]]
+            if masks is not None:
+                masks = masks.copy()
+                masks[:, :, :w] = masks[:, :, :w][:, :, ::-1]
+        else:
+            boxes[:, [1, 3]] = h - res["boxes"][:, [3, 1]]
+            if masks is not None:
+                masks = masks.copy()
+                masks[:, :h, :] = masks[:, :h, :][:, ::-1, :]
+        out = dict(res)
+        out["boxes"] = boxes
+        if masks is not None:
+            out["masks"] = np.ascontiguousarray(masks)
+        return out
+
+    def run_batch(self, imgs) -> List[Dict[str, np.ndarray]]:
+        from nuhtc_tpu_torch.eval.evaluate import mask_nms
+        from nuhtc_tpu_torch.ops import rle as rle_ops
+
+        per_flip = []
+        for d in self.flips:
+            flipped = [self._flip_img(im, d) for im in imgs]
+            per_flip.append([self._unflip(r, d, im.shape[0], im.shape[1])
+                             for r, im in zip(self.engine.run_batch(flipped), imgs)])
+        merged = []
+        for i in range(len(imgs)):
+            keys = [k for k in ("boxes", "scores", "labels", "probs", "masks")
+                    if k in per_flip[0][i]]
+            cat = {k: np.concatenate([pf[i][k] for pf in per_flip]) for k in keys}
+            if len(cat["scores"]):
+                if "masks" in cat:
+                    rles = [rle_ops.encode(m) for m in cat["masks"]]
+                    _, keep = mask_nms(rles, cat["scores"], thr=0.5)
+                else:
+                    # paste_masks=False: dedup on box IoU, or every instance
+                    # would appear once per flip
+                    keep = _box_nms(cat["boxes"], cat["scores"], thr=0.5)
+                cat = {k: v[keep] for k, v in cat.items()}
+            merged.append(cat)
+        return merged
+
+
+def _box_nms(boxes: np.ndarray, scores: np.ndarray, thr: float = 0.5) -> np.ndarray:
+    """Greedy host-side box-IoU NMS; returns kept indices (score-desc)."""
+    order = np.argsort(-scores)
+    b = boxes[order].astype(np.float64)
+    areas = np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1], 0)
+    keep = []
+    alive = np.ones(len(b), bool)
+    for i in range(len(b)):
+        if not alive[i]:
+            continue
+        keep.append(order[i])
+        x1 = np.maximum(b[i, 0], b[i + 1:, 0])
+        y1 = np.maximum(b[i, 1], b[i + 1:, 1])
+        x2 = np.minimum(b[i, 2], b[i + 1:, 2])
+        y2 = np.minimum(b[i, 3], b[i + 1:, 3])
+        inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+        iou = inter / np.maximum(areas[i] + areas[i + 1:] - inter, 1e-12)
+        alive[i + 1:] &= iou <= thr
+    return np.asarray(keep, np.int64)

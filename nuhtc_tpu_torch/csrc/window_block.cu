@@ -33,6 +33,15 @@
 // - The attention output between the launches is bf16, as the Pallas body
 //   casts it before proj; its buffer is padded to a multiple of 32 rows so
 //   launch 2 needs no row guards on its matrix loads.
+//
+// K2, the attention-only tier, is a mode of this source and not a second
+// copy. It replaces nuhtc_tpu/ops/window_attention_pallas.py:128
+// window_attention_fused (body _make_kernel :74): out = proj(attn(h1)), no
+// residual, LN2 and the MLP left to the caller. window_attention_launch runs
+// the same launch 1 into the same bf16 buffer and then proj_kernel, a
+// per-token product with wproj plus its bias. It is bound like K1's
+// attention part: by the products once the matrix units are fed (the qkv
+// and proj products are 8*M*C^2 FLOP against 2*M*C*2 bytes of maps).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -388,6 +397,60 @@ cudaError_t launch_mlp(const bf16* attn, const bf16* x, const bf16* wproj, const
   return cudaGetLastError();
 }
 
+// K2's second launch: grid (ceil(M / 32)). out = attn @ wproj^T + bproj on 32
+// flattened tokens, no residual. attn is the padded buffer of launch 1.
+__global__ void __launch_bounds__(MLP_WARPS * 32) proj_kernel(
+    const bf16* __restrict__ attn, const bf16* __restrict__ wproj,
+    const float* __restrict__ bproj, void* __restrict__ out, int out_f32, int C, long long M) {
+  __shared__ __align__(128) float scratch[MLP_WARPS * 256];
+  const long long m0 = (long long)blockIdx.x * MLP_TM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int CT = C / 16;
+  float* sc = scratch + warp * 256;
+  for (int t = warp; t < (MLP_TM / 16) * CT; t += MLP_WARPS) {
+    const int rt = t / CT, ct = t - rt * CT;
+    FragC acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k = 0; k < C; k += 16) {
+      FragA a;
+      FragBt bw;
+      wmma::load_matrix_sync(a, attn + (m0 + rt * 16) * C + k, C);
+      wmma::load_matrix_sync(bw, wproj + (long long)ct * 16 * C + k, C);
+      wmma::mma_sync(acc, a, bw, acc);
+    }
+    wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const int c = ct * 16 + (i % 16);
+      const long long row = m0 + rt * 16 + i / 16;
+      if (row < M) {
+        const float v = sc[i] + bproj[c];
+        if (out_f32)
+          reinterpret_cast<float*>(out)[row * C + c] = v;
+        else
+          reinterpret_cast<bf16*>(out)[row * C + c] = __float2bfloat16(v);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Launch 1 of both entry points.
+cudaError_t launch_attn(const void* h1, const void* wqkv, const void* bqkv, const void* relbias,
+                        void* attn_buf, int B, int Hp, int Wp, int C, int nh, int ws, int shift,
+                        float scale, cudaStream_t s) {
+  if (C != nh * HD || C % 16 || ws * ws > NP || Hp % ws || Wp % ws) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATTN_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * (Hp / ws) * (Wp / ws)), (unsigned)nh);
+  window_attn_kernel<<<grid, ATTN_THREADS, ATTN_SMEM, s>>>(
+      static_cast<const bf16*>(h1), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(relbias),
+      static_cast<bf16*>(attn_buf), Hp, Wp, C, ws, shift, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shapes: x, h1 (B, Hp, Wp, C) bf16; wqkv (3C, C), wproj (C, C), w1 (4C, C),
@@ -402,16 +465,8 @@ extern "C" int window_block_launch(const void* x, const void* h1, const void* wq
                                    int Wp, int C, int nh, int ws, int shift, float scale,
                                    int out_f32, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (C != nh * HD || ws * ws > NP || Hp % ws || Wp % ws) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ATTN_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * (Hp / ws) * (Wp / ws)), (unsigned)nh);
-  window_attn_kernel<<<grid, ATTN_THREADS, ATTN_SMEM, s>>>(
-      static_cast<const bf16*>(h1), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(relbias),
-      static_cast<bf16*>(attn_buf), Hp, Wp, C, ws, shift, scale);
-  err = cudaGetLastError();
+  cudaError_t err =
+      launch_attn(h1, wqkv, bqkv, relbias, attn_buf, B, Hp, Wp, C, nh, ws, shift, scale, s);
   if (err != cudaSuccess) return (int)err;
 
   const long long M = (long long)B * Hp * Wp;
@@ -433,4 +488,22 @@ extern "C" int window_block_launch(const void* x, const void* h1, const void* wq
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// K2: attention and proj only. h1 (B, Hp, Wp, C) bf16, weights and attn_buf as
+// above; out (B, Hp, Wp, C) bf16, or f32 when out_f32, without the residual.
+extern "C" int window_attention_launch(const void* h1, const void* wqkv, const void* bqkv,
+                                       const void* wproj, const void* bproj, const void* relbias,
+                                       void* attn_buf, void* out, int B, int Hp, int Wp, int C,
+                                       int nh, int ws, int shift, float scale, int out_f32,
+                                       void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      launch_attn(h1, wqkv, bqkv, relbias, attn_buf, B, Hp, Wp, C, nh, ws, shift, scale, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long M = (long long)B * Hp * Wp;
+  proj_kernel<<<(unsigned)((M + MLP_TM - 1) / MLP_TM), MLP_WARPS * 32, 0, s>>>(
+      static_cast<const bf16*>(attn_buf), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), out, out_f32, C, M);
+  return (int)cudaGetLastError();
 }

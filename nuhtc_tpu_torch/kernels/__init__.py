@@ -1,10 +1,11 @@
 """Builds and loads the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into ``build/nuhtc_tpu_torch/``
-at the root of the checkout (a directory ``.gitignore`` lists). The library's
-name carries a hash of the sources, so an edited source builds anew. Nothing
-here runs at import time: this package is imported on hosts without a GPU.
+The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
+source, all started together) and linked into one shared library with a
+plain C interface, at first use, into ``build/nuhtc_tpu_torch/`` at the root
+of the checkout (a directory ``.gitignore`` lists). The library's name
+carries a hash of the sources, so an edited source builds anew. Nothing here
+runs at import time: this package is imported on hosts without a GPU.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nuhtc_tpu_torch")
-SOURCES = ("window_block.cu", "component_stats.cu")
+SOURCES = ("window_block.cu", "component_stats.cu", "roi_align.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers, ints, the stream last)
 _SIGNATURES = {
     "window_block_launch": [_P] * 15 + [_I] * 7 + [_F, _I, _P],
+    "window_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "roi_align_launch": [_P] * 3 + [_I] * 10 + [_F, _P],
     "component_stats_launch": [_P] * 6 + [_I] * 4 + [_P],
 }
 
@@ -58,14 +61,22 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, os.path.splitext(s)[0] + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objects)]
+        logs = [(s, p.communicate()[0], p.returncode) for s, p in zip(SOURCES, procs)]
+        failed = [f"{s} ({rc}):\n{out}" for s, out, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(lib, path)
     return path
 
 

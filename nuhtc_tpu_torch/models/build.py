@@ -17,7 +17,9 @@ _BACKBONE_KEYS = ("embed_dims", "depths", "num_heads", "window_size", "mlp_ratio
 
 
 def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = None,
-                   scale_factor: float = 2.0) -> NuHTC:
+                   scale_factor: float = 2.0, swin_kernel: str = "block") -> NuHTC:
+    """``swin_kernel``: the Swin block's kernel tier on a CUDA device,
+    "block" (K1), "attn" (K2) or "none" (models/swin.py)."""
     model_cfg = dict(model_cfg)
     mtype = model_cfg.get("type")
     if mtype and mtype not in ("NuHTC", "HybridTaskCascade_Cus"):
@@ -30,6 +32,7 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
     neck = dict(model_cfg.get("neck") or {})
     backbone = {k: v for k, v in dict(model_cfg.get("backbone") or {}).items()
                 if k in _BACKBONE_KEYS}
+    backbone["kernel"] = swin_kernel
     bbox_heads = roi.get("bbox_head") or [{}]
     if isinstance(bbox_heads, dict):
         bbox_heads = [bbox_heads]

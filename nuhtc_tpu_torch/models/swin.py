@@ -5,10 +5,14 @@ mmdet SwinTransformer as NuHTC configures it (Swin-T: embed 96, depths
 (``stages.{i}.blocks.{j}.attn.w_msa.qkv`` ...). PatchMerging keeps mmdet's
 unfold channel order.
 
-Dispatch per block (as nuhtc_tpu/models/swin.py:236-272): on a CUDA tensor
-in eval mode the block after LN1 runs through the K1 kernel
-(``ops.window_block``); otherwise it takes the plain path with exact
-softmax attention and erf GELU.
+Dispatch per block (as nuhtc_tpu/models/swin.py:236-282), by the
+constructor argument ``kernel`` with the JAX package's tier names. On a CUDA
+tensor in eval mode, ``"block"`` runs the block after LN1 through the K1
+kernel (``ops.window_block``); ``"attn"`` runs attention and proj through
+the K2 kernel (``ops.window_attention``) and leaves the residual, LN2 and
+the erf-GELU MLP to PyTorch; ``"none"`` takes the plain path with exact
+softmax attention and erf GELU. On the CPU and in training mode every tier
+takes the plain path.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from torch import nn
 
 from nuhtc_tpu_torch.models.layers import MLP
 from nuhtc_tpu_torch.ops.window_block import (
-    shift_attn_mask, window_block, window_partition, window_reverse,
+    shift_attn_mask, window_attention, window_block, window_partition, window_reverse,
 )
+
+KERNEL_TIERS = ("block", "attn", "none")
 
 
 def rel_position_index(ws: int) -> np.ndarray:
@@ -87,8 +93,12 @@ def _pad_roll(x: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: bool,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: float | None = None):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: float | None = None,
+                 kernel: str = "block"):
         super().__init__()
+        if kernel not in KERNEL_TIERS:
+            raise ValueError(f"SwinBlock: kernel must be one of {KERNEL_TIERS}, not {kernel!r}")
+        self.kernel = kernel
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -103,8 +113,10 @@ class SwinBlock(nn.Module):
         h1p = _pad_roll(self.norm1(x), ws, s)
         hp, wp = h1p.shape[1:3]
         msa = self.attn.w_msa
-        if x.is_cuda and not self.training:
+        on_kernel = x.is_cuda and not self.training and self.kernel != "none"
+        if on_kernel:
             qkv_b = msa.qkv.bias if msa.qkv.bias is not None else msa.qkv.weight.new_zeros(3 * c)
+        if on_kernel and self.kernel == "block":
             out = window_block(
                 _pad_roll(x, ws, s), h1p, msa.qkv.weight, qkv_b, msa.proj.weight,
                 msa.proj.bias, msa.bias49(), self.norm2.weight, self.norm2.bias,
@@ -114,10 +126,15 @@ class SwinBlock(nn.Module):
             if s:
                 out = torch.roll(out, (s, s), dims=(1, 2))
             return out[:, :h, :w]
-        mask = None
-        if s:
-            mask = torch.from_numpy(shift_attn_mask(hp, wp, ws, s)).to(x.device)
-        y = window_reverse(msa(window_partition(h1p, ws), mask), ws, hp, wp)
+        if on_kernel:
+            y = window_attention(h1p, msa.qkv.weight, qkv_b, msa.proj.weight, msa.proj.bias,
+                                 msa.bias49(), ws=ws, num_heads=msa.num_heads, shift=s,
+                                 qk_scale=msa.qk_scale)
+        else:
+            mask = None
+            if s:
+                mask = torch.from_numpy(shift_attn_mask(hp, wp, ws, s)).to(x.device)
+            y = window_reverse(msa(window_partition(h1p, ws), mask), ws, hp, wp)
         if s:
             y = torch.roll(y, (s, s), dims=(1, 2))
         x = x + y[:, :h, :w]
@@ -142,11 +159,11 @@ class PatchMerging(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio, qkv_bias, qk_scale,
-                 downsample: bool):
+                 downsample: bool, kernel: str = "block"):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=(i % 2 == 1), mlp_ratio=mlp_ratio,
-                      qkv_bias=qkv_bias, qk_scale=qk_scale)
+                      qkv_bias=qkv_bias, qk_scale=qk_scale, kernel=kernel)
             for i in range(depth))
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
 
@@ -169,7 +186,7 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: float | None = None,
                  patch_norm: bool = True, out_indices: Sequence[int] = (0, 1, 2, 3),
-                 patch_size: int = 4, in_channels: int = 3):
+                 patch_size: int = 4, in_channels: int = 3, kernel: str = "block"):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size, patch_norm)
@@ -177,7 +194,8 @@ class SwinTransformer(nn.Module):
         dim = embed_dims
         for i, depth in enumerate(depths):
             self.stages.append(SwinStage(dim, depth, num_heads[i], window_size, mlp_ratio,
-                                         qkv_bias, qk_scale, downsample=i < len(depths) - 1))
+                                         qkv_bias, qk_scale, downsample=i < len(depths) - 1,
+                                         kernel=kernel))
             if i in self.out_indices:
                 self.add_module(f"norm{i}", nn.LayerNorm(dim, eps=1e-5))
             dim *= 2

@@ -1,12 +1,16 @@
-"""RoIAlign and attention pooling, batched, plain PyTorch.
+"""K4: RoIAlign, batched, and attention pooling.
 
-Port of the dense ``exact`` semantics of nuhtc_tpu/ops/roi_align.py: mmcv
-``RoIAlign(aligned=True, pool_mode='avg')`` written as two interpolation
-products per RoI, ``out = Sy @ F @ Sxᵀ`` (Sy (out, H), Sx (out, W)), with the
-adaptive sampling grid capped at ``max_grid`` and the exact fusion of
-``adaptive_avg_pool2d(RoIAlign(pool_from), out)`` through ``pool_from``.
-RoIs are processed in chunks so the (R, out, W, C) intermediate stays near
-1 GiB.
+``roi_align`` computes mmcv ``RoIAlign(aligned=True, pool_mode='avg')``, what
+the TPU kernel ``roi_align_pallas_batched`` (nuhtc_tpu/ops/roi_align_pallas.py:126)
+set out to compute, with the adaptive sampling grid capped at ``max_grid``
+and the exact fusion of ``adaptive_avg_pool2d(RoIAlign(pool_from), out)``
+through ``pool_from``. On a CUDA tensor it launches the hand gather kernel
+(``csrc/roi_align.cu``); on a CPU tensor it runs ``roi_align_plain``.
+
+``roi_align_plain`` is the port of the dense ``exact`` semantics of
+nuhtc_tpu/ops/roi_align.py: two interpolation products per RoI,
+``out = Sy @ F @ Sxᵀ`` (Sy (out, H), Sx (out, W)). RoIs are processed in
+chunks so the (R, out, W, C) intermediate stays near 1 GiB.
 """
 
 from __future__ import annotations
@@ -62,11 +66,12 @@ def _geometry(rois, spatial_scale, output_size, sampling_ratio, max_grid, pool_f
     return start_h, bin_h, grid_h, start_w, bin_w, grid_w, mg
 
 
-def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int,
-              sampling_ratio: int = 0, max_grid: int = 8,
-              pool_from: int | None = None) -> torch.Tensor:
-    """feat (B, H, W, C), rois (B, R, 4) [x1, y1, x2, y2] image coords →
-    (B, R, out, out, C) in feat.dtype (products in feat.dtype, f32 geometry)."""
+def roi_align_plain(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
+                    output_size: int, sampling_ratio: int = 0, max_grid: int = 8,
+                    pool_from: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K4 (the kernel's oracle). feat (B, H, W, C),
+    rois (B, R, 4) [x1, y1, x2, y2] image coords → (B, R, out, out, C) in
+    feat.dtype (products in feat.dtype, f32 geometry)."""
     b, h, w, c = feat.shape
     r = rois.shape[1]
     out = feat.new_empty((b, r, output_size, output_size, c))
@@ -85,6 +90,50 @@ def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, outp
         t1 = (sy.reshape(b, n * output_size, h) @ f2).reshape(b, n, output_size, w, c)
         out[:, sl] = sx[:, :, None] @ t1  # (B, n, out_i, out_j, C)
     return out
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int,
+              sampling_ratio: int = 0, max_grid: int = 8,
+              pool_from: int | None = None) -> torch.Tensor:
+    """K4 wrapper. feat (B, H, W, C) bf16 or f32, rois (B, R, 4) image coords
+    → (B, R, out, out, C) in feat.dtype, f32 sums.
+
+    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel."""
+    if feat.device.type == "cpu":
+        return roi_align_plain(feat, rois, spatial_scale, output_size, sampling_ratio,
+                               max_grid, pool_from)
+    if feat.device.type != "cuda" or rois.device != feat.device:
+        raise ValueError(f"roi_align: unsupported devices {feat.device}, {rois.device}")
+    if feat.dim() != 4 or rois.dim() != 3 or rois.shape[0] != feat.shape[0] or rois.shape[2] != 4:
+        raise ValueError(f"roi_align: bad shapes {tuple(feat.shape)} {tuple(rois.shape)}")
+    if feat.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"roi_align: kernel takes bf16 or f32 maps, not {feat.dtype}")
+    if pool_from is not None and (pool_from % output_size or sampling_ratio):
+        raise ValueError("roi_align: pool_from must be a multiple of output_size, with "
+                         "sampling_ratio 0")
+    b, h, w, c = feat.shape
+    r = rois.shape[1]
+    if b > 65535 or min(output_size, max_grid) < 1 or sampling_ratio < 0:
+        raise ValueError(f"roi_align: kernel cannot serve B={b} out={output_size} "
+                         f"sampling_ratio={sampling_ratio} max_grid={max_grid}")
+    out = feat.new_empty((b, r, output_size, output_size, c))
+    if out.numel() == 0:
+        return out
+
+    from nuhtc_tpu_torch import kernels
+
+    feat_c = feat.contiguous()
+    rois_c = rois.to(torch.float32).contiguous()
+    code = kernels.load().roi_align_launch(
+        feat_c.data_ptr(), rois_c.data_ptr(), out.data_ptr(), b, h, w, c, r, output_size,
+        sampling_ratio, max_grid, pool_from or 0, int(feat.dtype == torch.bfloat16),
+        float(spatial_scale), torch.cuda.current_stream(feat.device).cuda_stream)
+    kernels.check(code, "roi_align")
+    roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0
 
 
 def attention_pool(feat: torch.Tensor, rois: torch.Tensor, stride: int, thres: float,

@@ -3,10 +3,13 @@
 (a) ``state_dict_from_jax`` inverts the torch → flax converter bit for bit,
     and its output loads into the port's detector with strict key checking.
 (b) Importing every port module and running a tiny CPU forward imports
-    neither jax nor flax.
+    neither jax nor flax nor anything of the JAX package ``nuhtc_tpu``, and
+    no source file of the port names such an import.
+(c) ``init_detector`` takes the CPU only when asked for it.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -106,7 +109,9 @@ def test_port_never_imports_jax():
         res = eng.run_batch([np.full((64, 64, 3), 200, np.uint8)])
         assert len(res) == 1
         new = set(sys.modules) - before
-        bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        assert "nuhtc_tpu_torch.config.config" in new
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu"))
         print("IMPORTED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -115,3 +120,31 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "IMPORTED []" in res.stdout
+
+
+def test_port_sources_name_no_jax_package_import():
+    """No file of the port nor chip_smoke.py imports jax, flax or anything of
+    ``nuhtc_tpu`` (``nuhtc_tpu_torch`` is another name: the pattern ends the
+    word)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|nuhtc_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "nuhtc_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [os.path.relpath(f, REPO) for f in files if pat.search(open(f).read())]
+    assert not bad, bad
+    assert pat.search("from nuhtc_tpu.config import Config")
+    assert pat.search("    import nuhtc_tpu") and pat.search("from nuhtc_tpu import x")
+    assert not pat.search("from nuhtc_tpu_torch.config import Config")
+
+
+def test_init_detector_takes_the_cpu_only_when_asked(monkeypatch):
+    from nuhtc_tpu_torch.apis import inference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = os.path.join(REPO, "configs/nuhtc/htc_lite_tiny_synthetic.py")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.init_detector(config, None, batch_size=1, tile_size=64)
+    engine = inference.init_detector(config, None, batch_size=1, tile_size=64, device="cpu")
+    assert engine.device.type == "cpu" and engine.dtype == torch.float32
+    assert not engine.device_preprocess and not engine.compact_masks  # the JAX defaults
