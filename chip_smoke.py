@@ -8,8 +8,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   2. build the hand kernels from ``nuhtc_tpu_torch/csrc`` (into
      ``build/nuhtc_tpu_torch/``);
   3. K1 ``window_block`` against its plain twin at the four Swin-T stage
-     shapes of the main path (B16, 512² input), shift 0 and 3, bf16;
-     max abs error ≤ 0.05; median times from CUDA events;
+     shapes of the main path (B16, 512² input), shift 0 and 3, bf16, the
+     parameters passed as a ``BlockParams`` pack as ``SwinBlock`` passes
+     them; max abs error ≤ 0.05; times from CUDA events (``cuda_ms``: runs of
+     4 calls, the median of 5 runs), and beside
+     them, as a yardstick only, the time of the same block as an unfused
+     sequence of PyTorch's own bf16 calls (``F.linear`` ×4, softmax,
+     ``F.layer_norm``, tanh ``F.gelu``), which the port never runs on the
+     card with tier "block";
   4. K3 ``component_stats`` against its plain version at B16, 512², K512 on
      labels from the port's CCL of a blob mask; exactly equal;
   K4. ``roi_align`` against ``roi_align_plain`` at the twelve calls of one
@@ -20,7 +26,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      f32 max abs error ≤ 1e-4; in bf16, against the plain version on the
      f32 copy of the map, ≤ 2⁻⁷ of the map's largest magnitude;
   K2. ``window_attention`` against its plain twin at the four stage shapes,
-     shift 0 and 3; max abs error ≤ 0.05;
+     shift 0 and 3; max abs error ≤ 0.05; the unfused bf16 yardstick up to
+     proj beside it;
   5. a small-input reference check: the backbone on the card (through K1,
      then through K2) against the plain CPU path in f32;
   6. the WSI-mode slice: ``init_detector`` on the PanNuke config (Swin-T,
@@ -70,19 +77,23 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median time of ``fn`` on the card, by CUDA events, after one warm-up."""
+def cuda_ms(fn, rounds: int = 5, inner: int = 4) -> float:
+    """Time of one ``fn`` on the card: CUDA events around a run of ``inner``
+    calls, the median over ``rounds`` such runs, after one warm-up call. With
+    several calls queued the wrapper's host work hides behind the card's, as
+    it does in a forward."""
     import torch
 
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -122,73 +133,94 @@ def k1_inputs(side, c, nh, gen, device):
     )
 
 
-def phase_k1(device):
+def unfused_bf16(pack, mask, nh, mlp: bool):
+    """The block (or, without ``mlp``, attention and proj) as a sequence of
+    PyTorch's own bf16 calls on the card. A yardstick for the kernels' times
+    only: it rounds to bf16 after every call and is compared with nothing."""
     import torch
-    from nuhtc_tpu_torch.ops.window_block import window_block, window_block_plain
+    import torch.nn.functional as F
+    from nuhtc_tpu_torch.ops.window_block import window_partition, window_reverse
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    bf = torch.bfloat16
+    bias = pack.bias49.to(bf)[None]
+    if mask is not None:
+        bias = (bias + mask[:, None]).to(bf)  # (nW, nh, N, N)
+    vec = {k: getattr(pack, k).to(bf) for k in ("bqkv", "bproj", "g2", "b2", "bfc1", "bfc2")
+           if hasattr(pack, k)}
+
+    def run(xp, h1p):
+        b, hp, wp, c = h1p.shape
+        wins = window_partition(h1p, 7)
+        bw, n = wins.shape[:2]
+        qkv = F.linear(wins, pack.wqkv, vec["bqkv"]).reshape(bw, n, 3, nh, c // nh)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        attn = (q * (c // nh) ** -0.5) @ k.transpose(-1, -2)
+        attn = (attn.reshape(b, -1, nh, n, n) + bias).reshape(bw, nh, n, n)
+        o = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(bw, n, c)
+        y = F.linear(window_reverse(o, 7, hp, wp), pack.wproj, vec["bproj"])
+        if not mlp:
+            return y
+        x2 = xp + y
+        h2 = F.layer_norm(x2, (c,), vec["g2"], vec["b2"], eps=1e-5)
+        u = F.gelu(F.linear(h2, pack.wfc1, vec["bfc1"]), approximate="tanh")
+        return x2 + F.linear(u, pack.wfc2, vec["bfc2"])
+
+    return run
+
+
+def phase_swin_kernel(device, which: str):
+    """K1 ("block") or K2 ("attn") at the four stage shapes, both shifts."""
+    import torch
+    from nuhtc_tpu_torch.ops import window_block as wb
+
+    block = which == "block"
+    name = "K1 window_block" if block else "K2 window_attention"
+    kernel, plain = ((wb.window_block, wb.window_block_plain) if block
+                     else (wb.window_attention, wb.window_attention_plain))
+    tol = K1_TOL if block else K2_TOL
+    gen = torch.Generator(device=device).manual_seed(0 if block else 1)
+    err, ms, plain_ms, unfused_ms = 0.0, 0.0, 0.0, 0.0
     for side, c, nh, depth in STAGES:
         inp = k1_inputs(side, c, nh, gen, device)
+        maps = (inp.pop("xp"), inp.pop("h1p")) if block else (inp.pop("h1p"),)
+        if not block:
+            inp = {k: inp[k] for k in ("wqkv", "bqkv", "wproj", "bproj", "bias49")}
+        pack = wb.BlockParams(**inp)  # made once, as SwinBlock.kernel_params makes it
+        params = pack.block() if block else pack.attention()
         for shift in (0, 3):
             kw = dict(ws=7, num_heads=nh, shift=shift)
-            got = window_block(**inp, **kw)
-            want = window_block_plain(**inp, **kw)
+            got = kernel(*maps, *params, **kw)
+            want = plain(*maps, **inp, **kw)
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
-            if not np.isfinite(e) or e > K1_TOL:
-                raise AssertionError(f"K1 {side}² C{c} shift {shift}: max abs err {e}")
-            t_k = cuda_ms(lambda: window_block(**inp, **kw))
-            t_p = cuda_ms(lambda: window_block_plain(**inp, **kw))
-            log(f"K1 window_block {BATCH}x{side}x{side}x{c} heads {nh} shift {shift}: "
-                f"max_abs_err {e:.5f} kernel {t_k:.3f} ms plain {t_p:.3f} ms")
+            if not np.isfinite(e) or e > tol or got.shape != want.shape:
+                raise AssertionError(f"{name} {side}² C{c} shift {shift}: max abs err {e}")
+            del got, want
+            mask = None
+            if shift:
+                mask = torch.from_numpy(wb.shift_attn_mask(side, side, 7, shift)).to(device)
+            yard = unfused_bf16(pack, mask, nh, mlp=block)
+            xh = maps if block else (None, maps[0])
+            t_k = cuda_ms(lambda: kernel(*maps, *params, **kw))
+            t_p = cuda_ms(lambda: plain(*maps, **inp, **kw))
+            t_u = cuda_ms(lambda: yard(*xh))
+            b_ms, b_by = bound_ms(block_bound(side, c, which)[0], PEAK_BF16,
+                                  block_bound(side, c, which)[1])
+            log(f"{name} {BATCH}x{side}x{side}x{c} heads {nh} shift {shift}: "
+                f"max_abs_err {e:.5f} kernel {t_k:.3f} ms plain {t_p:.3f} ms "
+                f"unfused bf16 {t_u:.3f} ms bound {b_ms:.4f} ms ({b_by})")
             err = max(err, e)
             ms += t_k * depth / 2  # half the stage's blocks are shifted
             plain_ms += t_p * depth / 2
-        del inp
-    flops = sum(block_bound(side, c, "block")[0] * d for side, c, _, d in STAGES)
-    nbytes = sum(block_bound(side, c, "block")[1] * d for side, c, _, d in STAGES)
+            unfused_ms += t_u * depth / 2
+        del inp, maps, pack, params
+    flops = sum(block_bound(side, c, which)[0] * d for side, c, _, d in STAGES)
+    nbytes = sum(block_bound(side, c, which)[1] * d for side, c, _, d in STAGES)
     bound, by = bound_ms(flops, PEAK_BF16, nbytes)
-    log(f"K1 per forward (12 blocks): kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-
-
-def phase_k2(device):
-    import torch
-    from nuhtc_tpu_torch.ops.window_block import window_attention, window_attention_plain
-
-    gen = torch.Generator(device=device).manual_seed(1)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
-    for side, c, nh, depth in STAGES:
-        full = k1_inputs(side, c, nh, gen, device)
-        inp = {k: full[k] for k in ("h1p", "wqkv", "bqkv", "wproj", "bproj", "bias49")}
-        del full
-        for shift in (0, 3):
-            kw = dict(ws=7, num_heads=nh, shift=shift)
-            got = window_attention(**inp, **kw)
-            want = window_attention_plain(**inp, **kw)
-            torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            if not np.isfinite(e) or e > K2_TOL or got.shape != want.shape:
-                raise AssertionError(f"K2 {side}² C{c} shift {shift}: max abs err {e}")
-            t_k = cuda_ms(lambda: window_attention(**inp, **kw))
-            t_p = cuda_ms(lambda: window_attention_plain(**inp, **kw))
-            b_ms, b_by = bound_ms(block_bound(side, c, "attn")[0], PEAK_BF16,
-                                  block_bound(side, c, "attn")[1])
-            log(f"K2 window_attention {BATCH}x{side}x{side}x{c} heads {nh} shift {shift}: "
-                f"max_abs_err {e:.5f} kernel {t_k:.3f} ms plain {t_p:.3f} ms "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            err = max(err, e)
-            ms += t_k * depth / 2
-            plain_ms += t_p * depth / 2
-        del inp
-    flops = sum(block_bound(side, c, "attn")[0] * d for side, c, _, d in STAGES)
-    nbytes = sum(block_bound(side, c, "attn")[1] * d for side, c, _, d in STAGES)
-    bound, by = bound_ms(flops, PEAK_BF16, nbytes)
-    log(f"K2 per forward (12 blocks): kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    log(f"{name} per forward (12 blocks): kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        f"unfused bf16 sequence (yardstick) {unfused_ms:.3f} ms bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                unfused_bf16_ms=unfused_ms)
 
 
 def roi_boxes(rng, b, r, extent=512.0):
@@ -529,10 +561,15 @@ def main() -> int:
     kernels.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {kernels.library_path()}")
 
-    k1 = phase_k1(device)
+    for row in kernels.resource_usage():
+        if row["kernel"].startswith(("window_attn_kernel", "block_mlp_kernel")):
+            log(f"ptxas: {row['kernel']}: {row['registers']} registers, "
+                f"{row['spill_bytes']} spill bytes, {row['static_smem']} bytes static smem")
+
+    k1 = phase_swin_kernel(device, "block")
     k3 = phase_k3(device)
     k4 = phase_k4(device)
-    k2 = phase_k2(device)
+    k2 = phase_swin_kernel(device, "attn")
     phase_reference(device)
     wsi = phase_slice(device)
     strict = phase_strict(device)

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,13 +23,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nuhtc_tpu_torch")
 SOURCES = ("window_block.cu", "component_stats.cu", "roi_align.cu")
+HEADERS = ("wgmma_sm90.cuh",)  # included by window_block.cu
+# -Xptxas -v: registers, spills and shared memory of each kernel go to the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers, ints, the stream last)
 _SIGNATURES = {
-    "window_block_launch": [_P] * 15 + [_I] * 7 + [_F, _I, _P],
+    "window_block_launch": [_P] * 16 + [_I] * 7 + [_F, _I, _P],
     "window_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "roi_align_launch": [_P] * 3 + [_I] * 10 + [_F, _P],
     "component_stats_launch": [_P] * 6 + [_I] * 4 + [_P],
@@ -48,7 +51,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -76,8 +79,32 @@ def build() -> str:
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        with open(log_path(), "w") as f:
+            f.write("".join(out for _, out, _ in logs))
         os.replace(lib, path)
     return path
+
+
+def log_path() -> str:
+    """nvcc's output of the build that made the library (ptxas -v lines)."""
+    return os.path.splitext(library_path())[0] + ".log"
+
+
+def resource_usage() -> list[dict]:
+    """Per kernel of the built library, from the build log: demangled-enough
+    name, registers, spill bytes (stores + loads) and static shared memory."""
+    with open(log_path()) as f:
+        text = f.read()
+    rows = []
+    pat = re.compile(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                     r"loads.*?Used (\d+) registers(?:, (\d+) bytes smem)?", re.S)
+    for name, st, ld, regs, smem in pat.findall(text):
+        m = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+|[a-z0-9_]+)E)?", name)
+        short = name if m is None else m.group(1) + (
+            "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">" if m.group(2) else "")
+        rows.append(dict(kernel=short, registers=int(regs), spill_bytes=int(st) + int(ld),
+                         static_smem=int(smem or 0)))
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

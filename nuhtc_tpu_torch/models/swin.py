@@ -26,7 +26,8 @@ from torch import nn
 
 from nuhtc_tpu_torch.models.layers import MLP
 from nuhtc_tpu_torch.ops.window_block import (
-    shift_attn_mask, window_attention, window_block, window_partition, window_reverse,
+    BlockParams, shift_attn_mask, source_key, window_attention, window_block, window_partition,
+    window_reverse,
 )
 
 KERNEL_TIERS = ("block", "attn", "none")
@@ -105,6 +106,27 @@ class SwinBlock(nn.Module):
         self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias, qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn = MLP(dim, int(dim * mlp_ratio))
+        self._params: BlockParams | None = None
+
+    def kernel_params(self) -> BlockParams:
+        """The block's parameters as K1 and K2 read them (``BlockParams``),
+        made at first use and made anew when a parameter was written in
+        place, replaced or moved since (``source_key``)."""
+        msa = self.attn.w_msa
+        src = dict(wqkv=msa.qkv.weight, bqkv=msa.qkv.bias, wproj=msa.proj.weight,
+                   bproj=msa.proj.bias, bias49=msa.relative_position_bias_table,
+                   g2=self.norm2.weight, b2=self.norm2.bias,
+                   wfc1=self.ffn.fc1.weight, bfc1=self.ffn.fc1.bias,
+                   wfc2=self.ffn.fc2.weight, bfc2=self.ffn.fc2.bias)
+        if src["bqkv"] is None:
+            del src["bqkv"]
+        key = source_key(src.values())
+        if self._params is None or self._params.key != key:
+            with torch.no_grad():
+                src["bias49"] = msa.bias49()
+                src.setdefault("bqkv", msa.qkv.weight.new_zeros(msa.qkv.out_features))
+                self._params = BlockParams(key=key, **src)
+        return self._params
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, C) → (B, H, W, C)."""
@@ -114,22 +136,15 @@ class SwinBlock(nn.Module):
         hp, wp = h1p.shape[1:3]
         msa = self.attn.w_msa
         on_kernel = x.is_cuda and not self.training and self.kernel != "none"
-        if on_kernel:
-            qkv_b = msa.qkv.bias if msa.qkv.bias is not None else msa.qkv.weight.new_zeros(3 * c)
         if on_kernel and self.kernel == "block":
-            out = window_block(
-                _pad_roll(x, ws, s), h1p, msa.qkv.weight, qkv_b, msa.proj.weight,
-                msa.proj.bias, msa.bias49(), self.norm2.weight, self.norm2.bias,
-                self.ffn.fc1.weight, self.ffn.fc1.bias, self.ffn.fc2.weight, self.ffn.fc2.bias,
-                ws=ws, num_heads=msa.num_heads, shift=s, qk_scale=msa.qk_scale,
-            )
+            out = window_block(_pad_roll(x, ws, s), h1p, *self.kernel_params().block(),
+                               ws=ws, num_heads=msa.num_heads, shift=s, qk_scale=msa.qk_scale)
             if s:
                 out = torch.roll(out, (s, s), dims=(1, 2))
             return out[:, :h, :w]
         if on_kernel:
-            y = window_attention(h1p, msa.qkv.weight, qkv_b, msa.proj.weight, msa.proj.bias,
-                                 msa.bias49(), ws=ws, num_heads=msa.num_heads, shift=s,
-                                 qk_scale=msa.qk_scale)
+            y = window_attention(h1p, *self.kernel_params().attention(), ws=ws,
+                                 num_heads=msa.num_heads, shift=s, qk_scale=msa.qk_scale)
         else:
             mask = None
             if s:

@@ -13,6 +13,11 @@ the same places. Weights are in PyTorch's (out, in) layout.
 computes: windowed attention on ``h1p`` and proj, no residual; LN2 and the
 MLP stay with the caller. It is a mode of the same CUDA source; its plain
 twin is ``window_attention_plain``.
+
+``BlockParams`` is one block's parameters as the kernels read them (bf16
+weights, f32 vectors, the gathered ``bias49``, contiguous and aligned), made
+once: the wrappers convert nothing that is already in that form, so a caller
+that passes a pack's tensors pays for the launches and nothing else.
 """
 
 from __future__ import annotations
@@ -101,10 +106,102 @@ def window_block_plain(xp, h1p, wqkv, bqkv, wproj, bproj, bias49, g2, b2,
 
 
 def _prep(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    t = t.to(dtype).contiguous()
+    """``t`` as the kernels read it; ``t`` itself when it already is so."""
+    if (t.dtype is dtype and not t.requires_grad and t.is_contiguous()
+            and t.data_ptr() % 32 == 0):
+        return t
+    t = t.detach().to(dtype).contiguous()
     if t.data_ptr() % 32:
         t = t.clone()
     return t
+
+
+_WEIGHTS = ("wqkv", "wproj", "wfc1", "wfc2")  # bf16, (out, in)
+_VECTORS = ("bqkv", "bproj", "bias49", "g2", "b2", "bfc1", "bfc2")  # f32
+_ATTENTION = ("wqkv", "bqkv", "wproj", "bproj", "bias49")
+_BLOCK = _ATTENTION + ("g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
+
+
+class BlockParams:
+    """One Swin block's parameters in the form the kernels read: ``wqkv``
+    (3C, C), ``wproj`` (C, C), ``wfc1`` (4C, C), ``wfc2`` (C, 4C) in bf16;
+    ``bqkv``, ``bproj``, ``g2``, ``b2``, ``bfc1``, ``bfc2`` and ``bias49``
+    (nh, ws², ws²) in f32; all contiguous and 32-byte aligned. The MLP and
+    LN2 entries may be left out for the attention-only tier.
+
+    ``attention()`` and ``block()`` give the tensors in the order of
+    ``window_attention``'s and ``window_block``'s arguments after the maps.
+    ``key`` is what the pack was made from (see ``source_key``): a holder
+    rebuilds the pack when its parameters' key differs.
+    """
+
+    def __init__(self, key=None, **tensors: torch.Tensor):
+        unknown = set(tensors) - set(_BLOCK)
+        missing = set(_ATTENTION) - set(tensors)
+        if unknown or missing:
+            raise ValueError(f"BlockParams: unknown {sorted(unknown)}, missing {sorted(missing)}")
+        self.key = key
+        for name, t in tensors.items():
+            setattr(self, name, _prep(t, torch.bfloat16 if name in _WEIGHTS else torch.float32))
+        self.has_mlp = all(hasattr(self, name) for name in _BLOCK)
+
+    def attention(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, name) for name in _ATTENTION)
+
+    def block(self) -> tuple[torch.Tensor, ...]:
+        if not self.has_mlp:
+            raise ValueError("BlockParams: made without LN2 and the MLP")
+        return tuple(getattr(self, name) for name in _BLOCK)
+
+
+def source_key(tensors) -> tuple:
+    """Identity and state of parameter tensors: storage address, in-place
+    version counter, dtype and device. It changes when a parameter is
+    written in place (``load_state_dict``, an optimizer step), replaced, or
+    moved, and costs no device work."""
+    return tuple((t.data_ptr(), t._version, t.dtype, t.device) for t in tensors)
+
+
+def bias_fragments(bias49: torch.Tensor) -> torch.Tensor:
+    """The relative-position bias as launch 1 reads it: int32 (nh, 8, 128, 4).
+
+    Entry [h, j, t, 2i + e] belongs to thread ``t`` of a warpgroup (warp
+    ``t // 32``, lane ``l``) and to the score at row ``16·(t // 32) + l // 4
+    + 8i`` and column ``8j + 2·(l % 4) + e`` of the window's padded 64 × 64
+    score tile: the order of the thread's wgmma sum registers, so a thread
+    reads its 32 entries as eight 16-byte loads. The low half of an entry is
+    bf16(bias), the high half bf16(bias − 100) for a pair the shifted-window
+    mask separates (the Pallas bodies round the sum of bias and mask).
+    Padded columns hold −3e38 in both halves and padded rows 0.
+    """
+    nh, n, _ = bias49.shape
+    if n > 64:
+        raise ValueError(f"bias_fragments: {n} tokens per window, at most 64")
+    table = bias49.new_zeros((nh, 64, 64), dtype=torch.float32)
+    table[:, :, n:] = -3.0e38
+    table[:, :n, :n] = bias49.float()
+
+    def bits(v):
+        return v.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+    masked = table - 100.0
+    masked[:, :, n:] = -3.0e38
+    packed = bits(table) | (bits(masked) << 16)  # (nh, 64, 64) int32
+    t = torch.arange(128, device=bias49.device)
+    j = torch.arange(8, device=bias49.device)
+    k = torch.arange(4, device=bias49.device)
+    row = (16 * (t // 32) + (t % 32) // 4)[None, :, None] + 8 * (k // 2)[None, None, :]
+    col = 8 * j[:, None, None] + (2 * (t % 4))[None, :, None] + (k % 2)[None, None, :]
+    return packed[:, row.expand(8, 128, 4), col.expand(8, 128, 4)].contiguous()
+
+
+def _bias_table(rel: torch.Tensor) -> torch.Tensor:
+    """``bias_fragments(rel)``, kept on the tensor it was made from (a pack's
+    ``bias49`` lives as long as the pack) until that tensor is written to."""
+    cached = getattr(rel, "_fragments", None)
+    if cached is None or cached[0] != rel._version:
+        cached = rel._fragments = (rel._version, bias_fragments(rel))
+    return cached[1]
 
 
 def _check_attention(name, h1p, tensors, wqkv, wproj, bias49, ws: int, num_heads: int) -> None:
@@ -127,10 +224,8 @@ def _check_attention(name, h1p, tensors, wqkv, wproj, bias49, ws: int, num_heads
 
 
 def _attn_buf(h1p: torch.Tensor) -> torch.Tensor:
-    """bf16 scratch between the launches, rows padded to a multiple of 32."""
-    m = h1p.shape[0] * h1p.shape[1] * h1p.shape[2]
-    return torch.empty(((m + 31) // 32 * 32, h1p.shape[3]), dtype=torch.bfloat16,
-                       device=h1p.device)
+    """bf16 scratch for the attention output between the two launches."""
+    return torch.empty(h1p.shape, dtype=torch.bfloat16, device=h1p.device)
 
 
 def window_attention(h1p, wqkv, bqkv, wproj, bproj, bias49, ws: int, num_heads: int,
@@ -159,7 +254,7 @@ def window_attention(h1p, wqkv, bqkv, wproj, bproj, bias49, ws: int, num_heads: 
     scale = qk_scale if qk_scale is not None else (c // num_heads) ** -0.5
     code = kernels.load().window_attention_launch(
         h_b.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
-        b_proj.data_ptr(), rel.data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
+        b_proj.data_ptr(), _bias_table(rel).data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
         b, hp, wp, c, num_heads, ws, shift, float(scale), int(out_f32),
         torch.cuda.current_stream(h1p.device).cuda_stream,
     )
@@ -198,15 +293,18 @@ def window_block(xp, h1p, wqkv, bqkv, wproj, bproj, bias49, g2, b2,
     w = [_prep(t, bf) for t in (wqkv, wproj, wfc1, wfc2)]
     v = [_prep(t, f32) for t in (bqkv, bproj, g2, b2, bfc1, bfc2, bias49)]
     attn_buf = _attn_buf(h1p)
+    # at C = 768 x2 waits in an f32 scratch map while fc2's sums fill the registers
+    park = torch.empty(xp.shape, dtype=f32, device=xp.device) if c == 768 else None
     out_f32 = xp.dtype == f32
     out = torch.empty(xp.shape, dtype=f32 if out_f32 else bf, device=xp.device)
     scale = qk_scale if qk_scale is not None else (c // num_heads) ** -0.5
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     code = kernels.load().window_block_launch(
         x_b.data_ptr(), h_b.data_ptr(), w[0].data_ptr(), v[0].data_ptr(),
-        w[1].data_ptr(), v[1].data_ptr(), v[6].data_ptr(), v[2].data_ptr(),
+        w[1].data_ptr(), v[1].data_ptr(), _bias_table(v[6]).data_ptr(), v[2].data_ptr(),
         v[3].data_ptr(), w[2].data_ptr(), v[4].data_ptr(), w[3].data_ptr(),
-        v[5].data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
+        v[5].data_ptr(), attn_buf.data_ptr(), park.data_ptr() if park is not None else None,
+        out.data_ptr(),
         b, hp, wp, c, num_heads, ws, shift, float(scale), int(out_f32), stream,
     )
     kernels.check(code, "window_block")

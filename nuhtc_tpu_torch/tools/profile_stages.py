@@ -15,8 +15,9 @@ positive-objectness logit raised so detections exist, it prints:
   stages, multiclass NMS, the mask branch, the paste, and ``collect``'s
   device wait, download and per-image split;
 - one batch under ``torch.profiler``: the device's summed kernel and copy
-  time, the idle share that leaves of an untraced batch, and the kernels
-  with the most device time.
+  time, the idle share that leaves of an untraced batch, the kernels with
+  the most device time, and every kernel of ``csrc/`` with its time per
+  launch (the Swin kernels' template arguments name the width).
 The card's name and power limit are printed first, then one JSON line per
 contract.
 """
@@ -27,12 +28,14 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import time
 
 import numpy as np
 import torch
 
+from nuhtc_tpu_torch import kernels
 from nuhtc_tpu_torch.apis import inference
 from nuhtc_tpu_torch.models import detector as detector_mod
 from nuhtc_tpu_torch.tools.synthetic import lift_objectness, synthetic_tiles
@@ -144,6 +147,18 @@ def profile_contract(name: str, batches, batch_size: int, **engine_kw):
           f"idle share of a {1e3 * wall:.1f} ms batch {1 - device_ms / (1e3 * wall):.3f}")
     for key, ms, count in rows[:14]:
         print(f"   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    # the port's own kernels (the __global__ functions of csrc/*.cu), whatever their rank
+    names = set()
+    for src in kernels.SOURCES:
+        with open(os.path.join(kernels.CSRC, src)) as f:
+            names.update(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(",
+                                    f.read()))
+    own = [r for r in rows if "(anonymous namespace)::" in r[0]
+           and r[0].split("(anonymous namespace)::")[1].split("<")[0].split("(")[0] in names]
+    print(f"   the port's kernels in that batch: {sum(r[1] for r in own):.3f} ms")
+    for key, ms, count in own:
+        short = key.split("(anonymous namespace)::")[1].split("(")[0]
+        print(f"   {ms:9.3f} ms  x{count:<5d} {1e3 * ms / count:9.1f} us each  {short}")
     print(json.dumps({"contract": name, "batch_ms": 1e3 * wall, "tiles_per_s": batch_size / wall,
                       "detections_per_tile": n_det / (steps * batch_size),
                       "collect_ms": {k: 1e3 * v for k, v in split.items()}, "stages_ms": stages,

@@ -17,8 +17,10 @@ import torch
 from nuhtc_tpu_torch.ops import components as tc
 from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_plain
 from nuhtc_tpu_torch.ops.window_block import (
-    window_attention, window_attention_plain, window_block, window_block_plain,
+    BlockParams, bias_fragments, window_attention, window_attention_plain, window_block, window_block_plain,
 )
+
+_NAMES = ("wqkv", "bqkv", "wproj", "bproj", "bias49", "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
 
 
 @pytest.fixture
@@ -28,13 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _block_args(device, c=96, nh=3, side=21, seed=0):
+def _block_args(device, c=96, nh=3, side=21, seed=0, batch=2):
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=device) * std
 
-    x = rnd(2, side, side, c, std=0.5).bfloat16()
+    x = rnd(batch, side, side, c, std=0.5).bfloat16()
     return (x, torch.nn.functional.layer_norm(x.float(), (c,)).bfloat16(),
             rnd(3 * c, c, std=c ** -0.5), rnd(3 * c, std=0.02), rnd(c, c, std=c ** -0.5),
             rnd(c, std=0.02), rnd(nh, 49, 49, std=0.02), 1.0 + rnd(c, std=0.1),
@@ -114,6 +116,139 @@ def test_block_plain_is_attention_plain_plus_mlp():
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def test_block_params_hold_kernel_ready_tensors_and_give_the_same_result():
+    """The pack holds bf16 weights, f32 vectors and bias49 of the right
+    shapes, and the wrappers give bit-equal results with it on the CPU."""
+    args = _block_args("cpu")
+    c, nh = 96, 3
+    pack = BlockParams(**dict(zip(_NAMES, args[2:])))
+    shapes = dict(wqkv=(3 * c, c), wproj=(c, c), wfc1=(4 * c, c), wfc2=(c, 4 * c), bqkv=(3 * c,),
+                  bproj=(c,), bias49=(nh, 49, 49), g2=(c,), b2=(c,), bfc1=(4 * c,), bfc2=(c,))
+    for name, shape in shapes.items():
+        t = getattr(pack, name)
+        want = torch.bfloat16 if name.startswith("w") else torch.float32
+        assert t.dtype == want and tuple(t.shape) == shape and t.is_contiguous(), name
+        assert t.data_ptr() % 32 == 0 and not t.requires_grad, name
+    kw = dict(ws=7, num_heads=nh, shift=3)
+    assert torch.equal(window_block(*args[:2], *pack.block(), **kw), window_block(*args, **kw))
+    assert torch.equal(window_attention(args[1], *pack.attention(), **kw),
+                       window_attention(*_attn_args(args), **kw))
+    # a pack's tensors pass through a second pack untouched: nothing is converted twice
+    again = BlockParams(**dict(zip(_NAMES, pack.block())))
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(again.block(), pack.block()))
+
+
+def test_block_params_attention_only_and_bad_names():
+    args = _block_args("cpu")
+    pack = BlockParams(**dict(zip(_NAMES[:5], args[2:7])))
+    assert len(pack.attention()) == 5 and not pack.has_mlp
+    with pytest.raises(ValueError):
+        pack.block()
+    with pytest.raises(ValueError):
+        BlockParams(wqkv=args[2])
+    with pytest.raises(ValueError):
+        BlockParams(**dict(zip(_NAMES[:5], args[2:7])), gamma=args[7])
+
+
+@pytest.mark.parametrize("nh,ws", [(3, 7), (2, 8), (1, 4)])
+def test_bias_fragments_hold_both_roundings_in_register_order(nh, ws):
+    """Entry [h, j, t, 2i + e] is the score at row 16(t//32) + (t%32)//4 + 8i,
+    column 8j + 2(t%4) + e: low half bf16(bias), high half bf16(bias - 100);
+    padded columns -3e38, padded rows 0."""
+    n = ws * ws
+    bias = torch.from_numpy(np.random.RandomState(nh).randn(nh, n, n).astype(np.float32))
+    frag = bias_fragments(bias)
+    assert frag.shape == (nh, 8, 128, 4) and frag.dtype == torch.int32 and frag.is_contiguous()
+
+    def f32(half):  # bf16 bits in the low 16 of an int32 -> float
+        return (half << 16).view(torch.float32)
+
+    lo, hi = f32(frag & 0xFFFF), f32((frag >> 16) & 0xFFFF)
+    rng = np.random.RandomState(0)
+    seen_pad = False
+    for _ in range(400):
+        h, j, t, k = rng.randint(nh), rng.randint(8), rng.randint(128), rng.randint(4)
+        row = 16 * (t // 32) + (t % 32) // 4 + 8 * (k // 2)
+        col = 8 * j + 2 * (t % 4) + k % 2
+        got = lo[h, j, t, k].item(), hi[h, j, t, k].item()
+        if col >= n:
+            assert got[0] < -2.9e38 and got[1] < -2.9e38
+            seen_pad = True
+        elif row >= n:
+            assert got == (0.0, -100.0)
+        else:
+            b = bias[h, row, col]
+            assert got == (b.bfloat16().float().item(), (b - 100.0).bfloat16().float().item())
+    assert seen_pad or n == 64
+    with pytest.raises(ValueError):
+        bias_fragments(torch.zeros(1, 81, 81))
+
+
+def _swin_block(dim=96, heads=3, shift=True, seed=0):
+    from nuhtc_tpu_torch.models.swin import SwinBlock
+
+    torch.manual_seed(seed)
+    blk = SwinBlock(dim, heads, 7, shift=shift).eval()
+    with torch.no_grad():
+        blk.attn.w_msa.relative_position_bias_table.normal_(std=0.2)
+    return blk
+
+
+def test_swin_block_pack_matches_its_parameters():
+    blk = _swin_block()
+    msa = blk.attn.w_msa
+    pack = blk.kernel_params()
+    assert blk.kernel_params() is pack  # made once
+    assert torch.equal(pack.wqkv, msa.qkv.weight.detach().bfloat16())
+    assert torch.equal(pack.wfc2, blk.ffn.fc2.weight.detach().bfloat16())
+    assert torch.equal(pack.bias49, msa.bias49().detach().float())
+    assert pack.bias49.shape == (3, 49, 49) and pack.g2.dtype == torch.float32
+    # the pack feeds the wrappers what the parameters themselves would
+    x = torch.randn(1, 14, 14, 96, generator=torch.Generator().manual_seed(1)).bfloat16()
+    h1 = torch.nn.functional.layer_norm(x.float(), (96,)).bfloat16()
+    kw = dict(ws=7, num_heads=3, shift=3)
+    with torch.no_grad():
+        direct = window_block(x, h1, msa.qkv.weight, msa.qkv.bias, msa.proj.weight, msa.proj.bias,
+                              msa.bias49(), blk.norm2.weight, blk.norm2.bias, blk.ffn.fc1.weight,
+                              blk.ffn.fc1.bias, blk.ffn.fc2.weight, blk.ffn.fc2.bias, **kw)
+    assert torch.equal(window_block(x, h1, *pack.block(), **kw), direct)
+
+
+@pytest.mark.parametrize("how", ["in_place", "bias_table", "load_state_dict", "replaced", "cast"])
+def test_swin_block_pack_is_rebuilt_when_a_parameter_changes(how):
+    blk = _swin_block()
+    msa = blk.attn.w_msa
+    old = blk.kernel_params()
+    with torch.no_grad():
+        if how == "in_place":
+            blk.ffn.fc1.weight.mul_(2.0)
+        elif how == "bias_table":
+            msa.relative_position_bias_table.add_(1.0)
+        elif how == "load_state_dict":
+            blk.load_state_dict(_swin_block(seed=5).state_dict())
+        elif how == "replaced":
+            msa.proj.weight = torch.nn.Parameter(msa.proj.weight * 3.0)
+        else:
+            blk.double()
+    new = blk.kernel_params()
+    assert new is not old and blk.kernel_params() is new
+    assert torch.equal(new.wfc1, blk.ffn.fc1.weight.detach().bfloat16())
+    assert torch.equal(new.wproj, msa.proj.weight.detach().bfloat16())
+    assert torch.equal(new.bias49, msa.bias49().detach().float())
+    changed = dict(in_place="wfc1", bias_table="bias49", load_state_dict="wqkv", replaced="wproj")
+    if how in changed:
+        assert not torch.equal(getattr(new, changed[how]), getattr(old, changed[how]))
+
+
+def test_swin_block_without_qkv_bias_packs_zeros():
+    from nuhtc_tpu_torch.models.swin import SwinBlock
+
+    blk = SwinBlock(96, 3, 7, shift=False, qkv_bias=False).eval()
+    pack = blk.kernel_params()
+    assert pack.bqkv.shape == (288,) and not pack.bqkv.any()
+    assert blk.kernel_params() is pack
+
+
 def _pallas_attention_case(ws, c, nh, hw, shift, seed):
     """window_attention_fused (interpret) and the twin on the same inputs."""
     import jax
@@ -174,6 +309,72 @@ def test_window_block_kernel_f32_output(cuda):
     want = window_block_plain(*args, ws=7, num_heads=3, shift=0)
     assert got.dtype == torch.float32
     assert (got - want).abs().max().item() <= 0.01
+
+
+WIDTHS = [(96, 3), (192, 6), (384, 12), (768, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,side", [(1, 7), (3, 21)], ids=["1window", "27windows"])
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("c,nh", WIDTHS)
+def test_window_kernels_at_tile_edges(cuda, c, nh, shift, batch, side):
+    """Token counts that are no multiple of the 64-row tile (49 and 1323) and
+    window counts (1 and 27) that are no multiple of the windows per block,
+    at every width; K1 and K2, bf16 and f32 output."""
+    args = _block_args(cuda, c=c, nh=nh, side=side, batch=batch, seed=c + side)
+    kw = dict(ws=7, num_heads=nh, shift=shift)
+    got, want = window_block(*args, **kw), window_block_plain(*args, **kw)
+    got2 = window_attention(*_attn_args(args), **kw)
+    want2 = window_attention_plain(*_attn_args(args), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() <= 0.05
+    assert (got2.float() - want2.float()).abs().max().item() <= 0.05
+    assert want2.float().abs().max().item() > 0.1  # not a comparison of zeros
+    args32 = (args[0].float(), args[1].float()) + tuple(args[2:])
+    got32 = window_block(*args32, **kw)
+    assert got32.dtype == torch.float32
+    assert (got32 - window_block_plain(*args32, **kw)).abs().max().item() <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,nh", [(96, 3), (384, 12)])
+def test_window_kernels_take_a_qk_scale_and_a_pack(cuda, c, nh):
+    args = _block_args(cuda, c=c, nh=nh, side=14, seed=7)
+    kw = dict(ws=7, num_heads=nh, shift=3, qk_scale=0.4)
+    want = window_block_plain(*args, **kw)
+    default = window_block_plain(*args, ws=7, num_heads=nh, shift=3)
+    assert (want.float() - default.float()).abs().max().item() > 0.05  # the scale matters
+    pack = BlockParams(**dict(zip(_NAMES, args[2:])))
+    for params in (args[2:], pack.block()):
+        got = window_block(*args[:2], *params, **kw)
+        assert (got.float() - want.float()).abs().max().item() <= 0.05
+    got2 = window_attention(args[1], *pack.attention(), **kw)
+    want2 = window_attention_plain(*_attn_args(args), **kw)
+    assert (got2.float() - want2.float()).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+def test_window_kernels_raise_on_what_they_do_not_take(cuda):
+    args = list(_block_args(cuda, side=14))
+    kw = dict(ws=7, num_heads=3, shift=0)
+    before = window_block.launches, window_attention.launches
+    with pytest.raises(ValueError):  # head dim 48, not 32
+        window_block(*args, ws=7, num_heads=2, shift=0)
+    with pytest.raises(ValueError):
+        window_attention(*_attn_args(args), ws=7, num_heads=2, shift=0)
+    with pytest.raises(ValueError):  # mlp_ratio 2
+        window_block(*args[:9], args[9][:192], args[10][:192], args[11][:, :192], args[12], **kw)
+    with pytest.raises(ValueError):  # a map that is no multiple of ws
+        window_block(args[0][:, :13], args[1][:, :13], *args[2:], **kw)
+    with pytest.raises(ValueError):
+        window_attention(args[1][:, :, :13], *args[2:7], **kw)
+    with pytest.raises(ValueError):  # tensors on two devices
+        window_block(*args[:2], args[2].cpu(), *args[3:], **kw)
+    with pytest.raises(ValueError):
+        window_attention(args[1], *args[2:6], args[6].cpu(), **kw)
+    assert (window_block.launches, window_attention.launches) == before
 
 
 @pytest.mark.cuda
