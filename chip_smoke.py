@@ -10,21 +10,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   3. K1 ``window_block`` against its plain twin at the four Swin-T stage
      shapes of the main path (B16, 512² input), shift 0 and 3, bf16, the
      parameters passed as a ``BlockParams`` pack as ``SwinBlock`` passes
-     them; max abs error ≤ 0.05; times from CUDA events (``cuda_ms``: runs of
-     4 calls, the median of 5 runs), and beside
-     them, as a yardstick only, the time of the same block as an unfused
+     them; max abs error ≤ 0.05; times from CUDA events (``cuda_ms`` of
+     ``nuhtc_tpu_torch/tools/timing.py``: runs of 4 calls, the median of 5
+     runs), and beside them, as a yardstick only, the time of the same block as an unfused
      sequence of PyTorch's own bf16 calls (``F.linear`` ×4, softmax,
      ``F.layer_norm``, tanh ``F.gelu``), which the port never runs on the
      card with tier "block";
   4. K3 ``component_stats`` against its plain version at B16, 512², K512 on
      labels from the port's CCL of a blob mask; exactly equal;
-  K4. ``roi_align`` against ``roi_align_plain`` at the twelve calls of one
-     forward (B16, C64; levels 128² and 64² and the semantic map 128²;
-     R1512 at out 7 with sampling ratio 2, the semantic call with
-     pool_from 14; R500 at out 14 with the adaptive grid), boxes from a
-     seed that include tiny, large, border-crossing and zero-size ones. In
-     f32 max abs error ≤ 1e-4; in bf16, against the plain version on the
-     f32 copy of the map, ≤ 2⁻⁷ of the map's largest magnitude;
+  K4. ``roi_align`` (the kernel's one-map mode) against ``roi_align_plain``
+     at the six (map, boxes, mode) pairs of one forward (B16, C64; levels
+     128² and 64² and the semantic map 128²; R1512 at out 7 with sampling
+     ratio 2, the semantic map with pool_from 14; R500 at out 14 with the
+     adaptive grid), boxes from a seed that include tiny, large,
+     border-crossing and zero-size ones; then the two fused stage calls of a
+     forward, ``roi_align_sum`` over p2 + p3 + semantic + a per-RoI bias,
+     against ``roi_align_sum_plain``. In f32 max abs error ≤ 1e-4; in bf16,
+     against the plain version on the f32 copies of the maps, ≤ 2⁻⁷ of the
+     (summed) largest magnitudes: the kernel rounds once. K4's time per
+     forward is 3 × the bbox-stage call + the mask-stage call;
   K2. ``window_attention`` against its plain twin at the four stage shapes,
      shift 0 and 3; max abs error ≤ 0.05; the unfused bf16 yardstick up to
      proj beside it;
@@ -35,14 +39,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the positive-objectness logit raised so detections exist, device
      preprocess and compact label maps), ``run_batch`` on 2 batches of
      synthetic tiles after one warm-up batch; per forward K1 must launch
-     12 times, K4 12 times and K3 at least once; outputs finite, label
+     12 times, K4 4 times and K3 at least once; outputs finite, label
      maps in [0, 500]; tiles/s;
   7. the strict patch path: the same config with the engine's defaults
      (host preprocess, one full-frame mask per detection) and the Swin
-     tier "attn"; per forward K2 12 times, K4 12 times, K3 at least once;
+     tier "attn"; per forward K2 12 times, K4 4 times, K3 at least once;
      masks (n, 256, 256) uint8 of 0/1; tiles/s and the collect split. Then
      flip TTA on 4 tiles: no more detections than the three views
      together, kept boxes inside the tile.
+K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
+(``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
+replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
+time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound (the least time the card could take: the larger of the bytes
@@ -75,26 +83,6 @@ ROI_R, MASK_R, FPN_C = 1512, 500, 64
 
 def log(*args):
     print(*args, flush=True)
-
-
-def cuda_ms(fn, rounds: int = 5, inner: int = 4) -> float:
-    """Time of one ``fn`` on the card: CUDA events around a run of ``inner``
-    calls, the median over ``rounds`` such runs, after one warm-up call. With
-    several calls queued the wrapper's host work hides behind the card's, as
-    it does in a forward."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return float(np.median(times))
 
 
 def bound_ms(flops: float, peak: float, nbytes: float):
@@ -172,6 +160,7 @@ def phase_swin_kernel(device, which: str):
     """K1 ("block") or K2 ("attn") at the four stage shapes, both shifts."""
     import torch
     from nuhtc_tpu_torch.ops import window_block as wb
+    from nuhtc_tpu_torch.tools.timing import cuda_ms
 
     block = which == "block"
     name = "K1 window_block" if block else "K2 window_attention"
@@ -223,61 +212,55 @@ def phase_swin_kernel(device, which: str):
                 unfused_bf16_ms=unfused_ms)
 
 
-def roi_boxes(rng, b, r, extent=512.0):
-    """(b, r, 4) boxes in image coordinates: nucleus-sized ones, plus tiny,
-    large (> 32 cells at stride 4), border-crossing and zero-size ones."""
-    xy = rng.uniform(-8, extent - 8, (b, r, 2))
-    wh = rng.uniform(6, 64, (b, r, 2))
-    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    n = r // 16
-    rois[:, :n, 2:] = rois[:, :n, :2] + rng.uniform(0.05, 2.0, (b, n, 2))  # tiny
-    big = rng.uniform(-40, 200, (b, n, 2))
-    rois[:, n:2 * n] = np.concatenate([big, big + rng.uniform(140, 500, (b, n, 2))], -1)
-    rois[:, 2 * n:3 * n, :2] = rng.uniform(-60, -1, (b, n, 2))  # cross the near border
-    rois[:, 2 * n:3 * n, 2:] = rng.uniform(4, 60, (b, n, 2))
-    far = rng.uniform(extent - 30, extent - 2, (b, n, 2))  # cross the far border
-    rois[:, 3 * n:4 * n] = np.concatenate([far, far + rng.uniform(20, 80, (b, n, 2))], -1)
-    rois[:, 4 * n:5 * n, 2:] = rois[:, 4 * n:5 * n, :2]  # zero size
-    rois[:, 5 * n] = [-200, -200, -150, -150]  # wholly outside
-    return rois
+def _cells_per_bin(rois, scale, out_size, sampling_ratio, pool_from, h, w):
+    """Per RoI and bin row / bin column, the distinct map cells with a
+    non-zero weight: (B, R, out) each, from the plain version's Sy and Sx."""
+    from nuhtc_tpu_torch.ops.roi_align import _geometry, _interp_matrix
+
+    sh, bh, gh, sw, bw, gw, mg = _geometry(rois, scale, out_size, sampling_ratio, 8, pool_from)
+    ny = (_interp_matrix(sh, bh, gh, out_size, h, mg) != 0).sum(-1)
+    nx = (_interp_matrix(sw, bw, gw, out_size, w, mg) != 0).sum(-1)
+    return ny, nx, gh, gw
 
 
-def roi_work(feat, rois, scale, out_size, sampling_ratio, pool_from):
-    """FLOP and bytes of one RoIAlign call on these boxes: 8 FLOP per channel
-    and sample point (four corners, a multiply and an add each) over each
-    box's own grid; the map and the boxes read once, the output written once."""
-    from nuhtc_tpu_torch.ops.roi_align import _geometry
-
-    _, _, gh, _, _, gw, _ = _geometry(rois, scale, out_size, sampling_ratio, 8, pool_from)
-    samples = float((gh.long() * gw.long()).sum()) * out_size * out_size
-    c = feat.shape[-1]
+def roi_work(feats, rois, scales, out_size, sampling_ratios, pool_froms, bias=None):
+    """FLOP and bytes of one (fused) RoIAlign call on these boxes, in the
+    cheapest exact form: per map, one multiply-add per channel and distinct
+    cell under each bin, one multiply per such cell for its weight, and 8
+    operations per sample point and axis for the weight lists; every map, the
+    boxes and the bias read once, the one output written once."""
+    c = feats[0].shape[-1]
+    flops = 0.0
+    for feat, scale, ratio, pool_from in zip(feats, scales, sampling_ratios, pool_froms):
+        ny, nx, gh, gw = _cells_per_bin(rois, scale, out_size, ratio, pool_from, *feat.shape[1:3])
+        rows, cols = ny.sum(-1).double(), nx.sum(-1).double()
+        flops += (2.0 * c + 1.0) * float((rows * cols).sum())
+        flops += 8.0 * out_size * float((gh.long() + gw.long()).sum())
     out_elems = rois.shape[0] * rois.shape[1] * out_size * out_size * c
-    nbytes = feat.numel() * feat.element_size() + rois.numel() * 4 + out_elems * feat.element_size()
-    return 8.0 * samples * c, nbytes
+    nbytes = (sum(f.numel() * f.element_size() for f in feats) + rois.numel() * 4
+              + (0 if bias is None else bias.numel() * 4) + out_elems * feats[0].element_size())
+    return flops, nbytes
 
 
 def phase_k4(device):
     import torch
-    from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+    from nuhtc_tpu_torch.ops.roi_align import (
+        roi_align, roi_align_plain, roi_align_sum, roi_align_sum_plain)
+    from nuhtc_tpu_torch.tools.synthetic import roi_stage_inputs
+    from nuhtc_tpu_torch.tools.timing import cuda_ms, graph_ms
 
-    rng = np.random.RandomState(4)
-    maps = {name: torch.from_numpy(rng.randn(BATCH, side, side, FPN_C).astype(np.float32)
-                                   ).to(device)
-            for name, side in (("p2", 128), ("p3", 64), ("semantic", 128))}
-    box_rois = torch.from_numpy(roi_boxes(rng, BATCH, ROI_R)).to(device)
-    mask_rois = torch.from_numpy(roi_boxes(rng, BATCH, MASK_R)).to(device)
-    # (map, stride, rois, calls per forward, arguments): the 12 calls of a forward
+    maps, box_rois, mask_rois, stages = roi_stage_inputs(device, BATCH, ROI_R, MASK_R, FPN_C)
+    # the kernel's one-map mode at the six (map, boxes, mode) pairs of a forward
     calls = [
-        ("p2", 4, box_rois, 3, dict(output_size=7, sampling_ratio=2)),
-        ("p3", 8, box_rois, 3, dict(output_size=7, sampling_ratio=2)),
-        ("semantic", 4, box_rois, 3, dict(output_size=7, sampling_ratio=0, pool_from=14)),
-        ("p2", 4, mask_rois, 1, dict(output_size=14, sampling_ratio=0)),
-        ("p3", 8, mask_rois, 1, dict(output_size=14, sampling_ratio=0)),
-        ("semantic", 4, mask_rois, 1, dict(output_size=14, sampling_ratio=0)),
+        ("p2", 4, box_rois, dict(output_size=7, sampling_ratio=2)),
+        ("p3", 8, box_rois, dict(output_size=7, sampling_ratio=2)),
+        ("semantic", 4, box_rois, dict(output_size=7, sampling_ratio=0, pool_from=14)),
+        ("p2", 4, mask_rois, dict(output_size=14, sampling_ratio=0)),
+        ("p3", 8, mask_rois, dict(output_size=14, sampling_ratio=0)),
+        ("semantic", 4, mask_rois, dict(output_size=14, sampling_ratio=0)),
     ]
     err32 = err16 = 0.0
-    ms = plain_ms = total_flops = total_bytes = bound_sum = 0.0
-    for name, stride, rois, per_forward, kw in calls:
+    for name, stride, rois, kw in calls:
         f32map = maps[name]
         scale = 1.0 / stride
         want = roi_align_plain(f32map, rois, scale, **kw)
@@ -299,41 +282,70 @@ def phase_k4(device):
             raise AssertionError(f"K4 bf16 {name} {kw}: max abs err {e16} > {tol}")
         del got, ref, plain16
         t_k = cuda_ms(lambda: roi_align(bmap, rois, scale, **kw))
-        t_p = cuda_ms(lambda: roi_align_plain(bmap, rois, scale, **kw))
-        flops, nbytes = roi_work(bmap, rois, scale, kw["output_size"], kw["sampling_ratio"],
-                                 kw.get("pool_from"))
+        flops, nbytes = roi_work([bmap], rois, [scale], kw["output_size"],
+                                 [kw["sampling_ratio"]], [kw.get("pool_from")])
         b_ms, b_by = bound_ms(flops, PEAK_F32, nbytes)
-        log(f"K4 roi_align {name} {tuple(bmap.shape)} R{rois.shape[1]} {kw}: f32 err {e32:.2e}; "
-            f"bf16 err {e16:.5f} (plain bf16 {e16_plain:.5f}, allowed {tol:.5f}); "
-            f"kernel {t_k:.3f} ms plain {t_p:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+        log(f"K4 roi_align (one map) {name} {tuple(bmap.shape)} R{rois.shape[1]} {kw}: "
+            f"f32 err {e32:.2e}; bf16 err {e16:.5f} (plain bf16 {e16_plain:.5f}, allowed "
+            f"{tol:.5f}); kernel {t_k:.3f} ms bound {b_ms:.4f} ms ({b_by})")
+        err32, err16 = max(err32, e32), max(err16, e16)
+
+    # the fused stage calls, as NuHTC._roi_features makes them
+    ms = device_ms = plain_ms = total_flops = total_bytes = bound_sum = 0.0
+    f32maps = [maps["p2"], maps["p3"], maps["semantic"]]
+    bmaps = [m.bfloat16() for m in f32maps]
+    for name, rois, bias, per_forward, args in stages:
+        want = roi_align_sum_plain(f32maps, rois, *args, bias=bias)
+        got = roi_align_sum(f32maps, rois, *args, bias=bias)
+        torch.cuda.synchronize()
+        e32 = (got - want).abs().max().item()
+        if got.shape != want.shape or not np.isfinite(e32) or e32 > 1e-4:
+            raise AssertionError(f"K4 f32 {name}: max abs err {e32}")
+        del got, want
+        ref = roi_align_sum_plain([m.float() for m in bmaps], rois, *args, bias=bias)
+        got = roi_align_sum(bmaps, rois, *args, bias=bias)
+        plain16 = roi_align_sum_plain(bmaps, rois, *args, bias=bias)
+        torch.cuda.synchronize()
+        # one bf16 rounding of a sum as large as the summed largest magnitudes
+        tol = 2.0 ** -7 * (sum(m.float().abs().max().item() for m in bmaps)
+                           + bias.abs().max().item())
+        e16 = (got.float() - ref).abs().max().item()
+        e16_plain = (plain16.float() - ref).abs().max().item()
+        if got.dtype != torch.bfloat16 or not np.isfinite(e16) or e16 > tol:
+            raise AssertionError(f"K4 bf16 {name}: max abs err {e16} > {tol}")
+        del got, ref, plain16
+        t_k = cuda_ms(lambda: roi_align_sum(bmaps, rois, *args, bias=bias))
+        t_d = graph_ms(lambda: roi_align_sum(bmaps, rois, *args, bias=bias))
+        t_p = cuda_ms(lambda: roi_align_sum_plain(bmaps, rois, *args, bias=bias))
+        flops, nbytes = roi_work(bmaps, rois, *args, bias=bias)
+        b_ms, b_by = bound_ms(flops, PEAK_F32, nbytes)
+        log(f"K4 roi_align_sum {name} (p2 + p3 + semantic + bias, R{rois.shape[1]} out {args[1]}"
+            f" ratios {args[2]} pool_from {args[3]}): f32 err {e32:.2e}; bf16 err {e16:.5f} "
+            f"(plain bf16 composition {e16_plain:.5f}, allowed {tol:.5f}); kernel {t_k:.3f} ms "
+            f"(device alone {t_d:.3f} ms) plain {t_p:.3f} ms bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
         err32, err16 = max(err32, e32), max(err16, e16)
         ms += t_k * per_forward
+        device_ms += t_d * per_forward
         plain_ms += t_p * per_forward
         total_flops += flops * per_forward
         total_bytes += nbytes * per_forward
         bound_sum += b_ms * per_forward
     by = bound_ms(total_flops, PEAK_F32, total_bytes)[1]
-    log(f"K4 per forward (12 calls): kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"bound {bound_sum:.4f} ms ({by}); max abs err f32 {err32:.2e}, bf16 {err16:.5f}")
-    return dict(max_abs_err=err16, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_sum, bound_by=by)
-
-
-def blob_mask(rng, b, size, n_blobs):
-    yy, xx = np.mgrid[:size, :size]
-    mask = np.zeros((b, size, size), bool)
-    for i in range(b):
-        for _ in range(n_blobs):
-            cy, cx = rng.randint(0, size, 2)
-            r = rng.randint(3, 12)
-            mask[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
-    return mask
+    log(f"K4 per forward (3 bbox-stage calls + 1 mask-stage call): kernel {ms:.3f} ms (device "
+        f"alone {device_ms:.3f} ms) plain "
+        f"{plain_ms:.3f} ms bound {bound_sum:.4f} ms ({by}); max abs err f32 {err32:.2e}, "
+        f"bf16 {err16:.5f}")
+    return dict(max_abs_err=err16, max_abs_err_f32=err32, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_sum, bound_by=by)
 
 
 def phase_k3(device):
     import torch
     from nuhtc_tpu_torch.ops.components import (
         component_stats, component_stats_plain, first_roots, label_components_raw)
+    from nuhtc_tpu_torch.tools.synthetic import blob_mask
+    from nuhtc_tpu_torch.tools.timing import cuda_ms, graph_ms
 
     mask = torch.from_numpy(blob_mask(np.random.RandomState(0), BATCH, 512, 400)).to(device)
     lab = label_components_raw(mask)
@@ -345,13 +357,17 @@ def phase_k3(device):
         bad = int((boxes != pb).any(-1).sum() + (areas != pa).sum())
         raise AssertionError(f"K3 differs from its plain version in {bad} entries")
     t_k = cuda_ms(lambda: component_stats(lab, roots))
+    t_d = graph_ms(lambda: component_stats(lab, roots))
     t_p = cuda_ms(lambda: component_stats_plain(lab, roots))
     # labels and roots read once, boxes and areas written once; int compares only
     nbytes = lab.numel() * 4 + roots.numel() * 4 + boxes.numel() * 4 + areas.numel() * 4
     bound, by = bound_ms(0.0, PEAK_F32, nbytes)
     log(f"K3 component_stats {BATCH}x512x512 K512 ({int(valid.sum())} components): "
-        f"exact; kernel {t_k:.3f} ms plain {t_p:.3f} ms bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by=by)
+        f"exact; kernel {t_k:.4f} ms (device alone "
+        f"{t_d:.4f} ms: its two launches without the wrapper's host work) plain {t_p:.3f} ms "
+        f"bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=0.0, ms=t_k, device_ms=t_d, plain_ms=t_p, bound_ms=bound,
+                bound_by=by)
 
 
 def phase_reference(device):
@@ -399,10 +415,11 @@ def read_counts():
 
 def check_counts(path, counts, forwards, swin_counter):
     """Per forward: 12 launches of the tier's Swin kernel and none of the
-    other's, 12 of roi_align, at least one of component_stats."""
+    other's, 4 of roi_align (one per cascade stage), at least one of
+    component_stats."""
     other = "window_attention" if swin_counter == "window_block" else "window_block"
     ok = (counts[swin_counter] == 12 * forwards and counts[other] == 0
-          and counts["roi_align"] == 12 * forwards and counts["component_stats"] >= forwards)
+          and counts["roi_align"] == 4 * forwards and counts["component_stats"] >= forwards)
     if not ok:
         raise AssertionError(f"{path}: kernel launches over {forwards} forwards: {counts}")
 

@@ -33,8 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "window_block_launch": [_P] * 16 + [_I] * 7 + [_F, _I, _P],
     "window_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-    "roi_align_launch": [_P] * 3 + [_I] * 10 + [_F, _P],
+    "roi_align_sum_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 6 + [_P],
     "component_stats_launch": [_P] * 6 + [_I] * 4 + [_P],
+    "component_stats_strips": [_I, _I],  # returns a size, not an error code
 }
 
 

@@ -21,7 +21,7 @@ from torch import nn
 from nuhtc_tpu_torch.models.bbox_head import Shared2FCBBoxHeadWithProb, seesaw_activation
 from nuhtc_tpu_torch.models.fpn import FPN
 from nuhtc_tpu_torch.models.mask_head import FusedSemanticHead, HTCMaskHead
-from nuhtc_tpu_torch.models.roi_extractor import attention_roi_features, single_roi_features
+from nuhtc_tpu_torch.models.roi_extractor import stage_roi_features
 from nuhtc_tpu_torch.models.rpn_head import RPNHead, rpn_proposals
 from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
@@ -75,10 +75,9 @@ class NuHTC(nn.Module):
 
     def _roi_features(self, feats, semantic_feat, rois, out_size: int, sampling_ratio: int,
                       sem_pool_from: int | None):
-        rf = attention_roi_features(feats, rois, out_size, sampling_ratio, strides=self.strides,
-                                    start_level=self.attn_start_level, thres=self.attn_thres)
-        return rf + single_roi_features(semantic_feat, rois, out_size, stride=self.strides[0],
-                                        pool_from=sem_pool_from)
+        return stage_roi_features(feats, semantic_feat, rois, out_size, sampling_ratio,
+                                  sem_pool_from, strides=self.strides,
+                                  start_level=self.attn_start_level, thres=self.attn_thres)
 
     def _bbox_stage(self, stage: int, feats, semantic_feat, rois):
         """rois (B, P, 4) → (cls (B, P, C+2), reg (B, P, 4))."""
@@ -136,7 +135,9 @@ class NuHTC(nn.Module):
         valid (B, D)."""
         h, w = img.shape[1:3]
         img_shape = (h, w)
-        feats = self.neck(self.backbone(img))
+        # contiguous once: the convolutions return permuted views, and every
+        # cascade stage hands these maps to the RoIAlign kernel
+        feats = tuple(f.contiguous() for f in self.neck(self.backbone(img)))
 
         cls_scores, bbox_preds = self.rpn_head(feats)
         prop_boxes, _, prop_valid = rpn_proposals(
@@ -145,6 +146,7 @@ class NuHTC(nn.Module):
             nms_iou=self.rpn_nms_iou, min_bbox_size=self.rpn_min_bbox_size)
 
         semantic_logits, semantic_feat = self.roi_head.semantic_head(feats)
+        semantic_feat = semantic_feat.contiguous()
         rois, rois_valid = prop_boxes, prop_valid
         if self.watershed_proposal:
             ws_boxes5, ws_valid = component_proposals_batched(

@@ -6,7 +6,8 @@ hole-filled semantic mask (see that module's docstring). Labels are the
 minimum linear pixel index of each 4-connected component (background = H·W).
 
 ``component_stats`` (the port of ``boxes_from_roots``) holds K3: on a CUDA
-tensor it launches the hand kernel ``csrc/component_stats.cu``; on a CPU
+tensor it launches the hand kernel ``csrc/component_stats.cu`` (per-strip
+statistics in shared memory, then a reduction over the strips); on a CPU
 tensor it runs ``component_stats_plain``, a scatter-reduce with the same
 exact result.
 """
@@ -125,10 +126,31 @@ def component_stats_plain(lab: torch.Tensor, roots: torch.Tensor):
     return torch.stack([x1, y1, x2, y2], dim=-1), areas.to(torch.int32)
 
 
+MAX_IDS_PER_LAUNCH = 4096  # their hash and statistics fit a block's shared memory (144 KB)
+
+
+@lru_cache(maxsize=64)
+def _strips(b: int, hw: int) -> int:
+    """K3's strips per image, as the library computes them."""
+    from nuhtc_tpu_torch import kernels
+
+    return kernels.load().component_stats_strips(b, hw)
+
+
+def _int32_contiguous(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
+    return x.to(torch.int32).contiguous()
+
+
 def component_stats(lab: torch.Tensor, roots: torch.Tensor):
     """Boxes [x1, y1, x2+1, y2+1] (B, K, 4) f32 and int32 areas (B, K) of the
     components with the given ids (``boxes_from_roots`` of the JAX package).
-    K3 wrapper: ``component_stats_plain`` on CPU, the kernel on CUDA."""
+    K3 wrapper: ``component_stats_plain`` on CPU, the kernel on CUDA (ids
+    hashed and statistics kept per block in shared memory, two launches,
+    nothing initialised). More than ``MAX_IDS_PER_LAUNCH`` ids go to the
+    kernel that many at a time; an id listed in two such calls gets the same
+    numbers from both, since each counts all of its pixels."""
     if lab.device.type == "cpu":
         return component_stats_plain(lab, roots)
     if lab.device.type != "cuda":
@@ -141,20 +163,35 @@ def component_stats(lab: torch.Tensor, roots: torch.Tensor):
 
     b, h, w = lab.shape
     k = roots.shape[1]
-    lab_c = lab.to(torch.int32).contiguous()
-    roots_c = roots.to(torch.int32).contiguous()
-    table = torch.empty((b, h * w + 1), dtype=torch.int32, device=lab.device)
-    stats = torch.empty((5, b, k), dtype=torch.int32, device=lab.device)
-    boxes = torch.empty((b, k, 4), dtype=torch.float32, device=lab.device)
-    areas = torch.empty((b, k), dtype=torch.int32, device=lab.device)
-    code = kernels.load().component_stats_launch(
-        lab_c.data_ptr(), roots_c.data_ptr(), table.data_ptr(), stats.data_ptr(),
-        boxes.data_ptr(), areas.data_ptr(), b, h, w, k,
-        torch.cuda.current_stream(lab.device).cuda_stream,
-    )
-    kernels.check(code, "component_stats")
-    component_stats.launches += 1
-    return boxes, areas
+    dev = lab.device
+    if b * k == 0:
+        return (torch.empty((b, k, 4), dtype=torch.float32, device=dev),
+                torch.empty((b, k), dtype=torch.int32, device=dev))
+    if b > 65535 or h * w == 0:
+        raise ValueError(f"component_stats: kernel cannot serve {tuple(lab.shape)}")
+    lab_c, roots_c = _int32_contiguous(lab), _int32_contiguous(roots)
+    lib = kernels.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    strips = _strips(b, h * w)
+    parts = []
+    chunks = [roots_c] if k <= MAX_IDS_PER_LAUNCH else [
+        c.contiguous() for c in roots_c.split(MAX_IDS_PER_LAUNCH, dim=1)]
+    for ids in chunks:
+        n = ids.shape[1]
+        boxes = torch.empty((b, n, 4), dtype=torch.float32, device=dev)
+        areas = torch.empty((b, n), dtype=torch.int32, device=dev)
+        # per-strip statistics (B, strips, 5, n), then each id's slot (B, n)
+        scratch = torch.empty(b * n * (5 * strips + 1), dtype=torch.int32, device=dev)
+        code = lib.component_stats_launch(
+            lab_c.data_ptr(), ids.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * b * n * 5 * strips, boxes.data_ptr(), areas.data_ptr(),
+            b, h, w, n, stream)
+        kernels.check(code, "component_stats")
+        component_stats.launches += 1
+        parts.append((boxes, areas))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
 component_stats.launches = 0

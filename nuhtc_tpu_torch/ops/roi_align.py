@@ -1,19 +1,25 @@
-"""K4: RoIAlign, batched, and attention pooling.
+"""K4: RoIAlign, batched and summed over maps, and attention pooling.
 
 ``roi_align`` computes mmcv ``RoIAlign(aligned=True, pool_mode='avg')``, what
 the TPU kernel ``roi_align_pallas_batched`` (nuhtc_tpu/ops/roi_align_pallas.py:126)
 set out to compute, with the adaptive sampling grid capped at ``max_grid``
 and the exact fusion of ``adaptive_avg_pool2d(RoIAlign(pool_from), out)``
-through ``pool_from``. On a CUDA tensor it launches the hand gather kernel
-(``csrc/roi_align.cu``); on a CPU tensor it runs ``roi_align_plain``.
+through ``pool_from``. ``roi_align_sum`` is what a cascade stage needs of it:
+the sum of RoIAlign over up to three maps, each with its own scale, sampling
+ratio and ``pool_from``, on one set of boxes, plus a per-RoI bias. On CUDA
+tensors both launch the hand kernel (``csrc/roi_align.cu``) once, ``roi_align``
+as its one-map mode; on CPU tensors they run the plain versions.
 
 ``roi_align_plain`` is the port of the dense ``exact`` semantics of
 nuhtc_tpu/ops/roi_align.py: two interpolation products per RoI,
 ``out = Sy @ F @ Sxᵀ`` (Sy (out, H), Sx (out, W)). RoIs are processed in
 chunks so the (R, out, W, C) intermediate stays near 1 GiB.
+``roi_align_sum_plain`` composes it with PyTorch adds.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -92,55 +98,118 @@ def roi_align_plain(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float
     return out
 
 
-def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int,
-              sampling_ratio: int = 0, max_grid: int = 8,
-              pool_from: int | None = None) -> torch.Tensor:
-    """K4 wrapper. feat (B, H, W, C) bf16 or f32, rois (B, R, 4) image coords
-    → (B, R, out, out, C) in feat.dtype, f32 sums.
+def roi_align_sum_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                        spatial_scales: Sequence[float], output_size: int,
+                        sampling_ratios: Sequence[int], pool_froms: Sequence[int | None],
+                        bias: torch.Tensor | None = None, max_grid: int = 8) -> torch.Tensor:
+    """Plain PyTorch version of the fused K4 call: ``roi_align_plain`` per
+    map, added up in the maps' type, then ``bias`` (B, R, C) broadcast over
+    the bins (every add rounds in that type)."""
+    out = None
+    for feat, scale, ratio, pool_from in zip(feats, spatial_scales, sampling_ratios, pool_froms):
+        t = roi_align_plain(feat, rois, scale, output_size, ratio, max_grid, pool_from)
+        out = t if out is None else out + t
+    if bias is not None:
+        out = out + bias.to(out.dtype)[:, :, None, None, :]
+    return out
 
-    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel."""
-    if feat.device.type == "cpu":
-        return roi_align_plain(feat, rois, spatial_scale, output_size, sampling_ratio,
-                               max_grid, pool_from)
-    if feat.device.type != "cuda" or rois.device != feat.device:
-        raise ValueError(f"roi_align: unsupported devices {feat.device}, {rois.device}")
-    if feat.dim() != 4 or rois.dim() != 3 or rois.shape[0] != feat.shape[0] or rois.shape[2] != 4:
-        raise ValueError(f"roi_align: bad shapes {tuple(feat.shape)} {tuple(rois.shape)}")
-    if feat.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"roi_align: kernel takes bf16 or f32 maps, not {feat.dtype}")
-    if pool_from is not None and (pool_from % output_size or sampling_ratio):
-        raise ValueError("roi_align: pool_from must be a multiple of output_size, with "
-                         "sampling_ratio 0")
-    b, h, w, c = feat.shape
+
+def roi_align_sum(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                  spatial_scales: Sequence[float], output_size: int,
+                  sampling_ratios: Sequence[int], pool_froms: Sequence[int | None],
+                  bias: torch.Tensor | None = None, max_grid: int = 8) -> torch.Tensor:
+    """K4 wrapper: Σₗ roi_align(featsₗ, rois, …) + bias[:, :, None, None, :].
+
+    feats: 1 to 3 maps (B, Hₗ, Wₗ, C), all bf16 or all f32, each with its
+    scale, sampling ratio and ``pool_from`` (None or a multiple of
+    ``output_size``, with sampling ratio 0); rois (B, R, 4) image coords;
+    bias (B, R, C) or None → (B, R, out, out, C) in the maps' type. The kernel
+    sums in f32 and rounds once, at the store.
+
+    CPU tensors take ``roi_align_sum_plain``; CUDA tensors launch the kernel,
+    once, or raise."""
+    feats = list(feats)
+    n = len(feats)
+    if not (n == len(spatial_scales) == len(sampling_ratios) == len(pool_froms)):
+        raise ValueError("roi_align_sum: one scale, sampling ratio and pool_from per map")
+    if not 1 <= n <= 3:
+        raise ValueError(f"roi_align_sum: takes 1 to 3 maps, not {n}")
+    first = feats[0]
+    for f in feats:
+        if f.dim() != 4 or f.dtype != first.dtype or f.device != first.device:
+            raise ValueError("roi_align_sum: maps must be (B, H, W, C) of one type on one device")
+        if f.shape[0] != first.shape[0] or f.shape[3] != first.shape[3]:
+            raise ValueError("roi_align_sum: maps differ in batch or channels: "
+                             f"{[tuple(f.shape) for f in feats]}")
+    b, c = first.shape[0], first.shape[3]
+    if rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4:
+        raise ValueError(f"roi_align_sum: bad shapes {tuple(first.shape)} {tuple(rois.shape)}")
     r = rois.shape[1]
-    if b > 65535 or min(output_size, max_grid) < 1 or sampling_ratio < 0:
-        raise ValueError(f"roi_align: kernel cannot serve B={b} out={output_size} "
-                         f"sampling_ratio={sampling_ratio} max_grid={max_grid}")
-    out = feat.new_empty((b, r, output_size, output_size, c))
+    if bias is not None and tuple(bias.shape) != (b, r, c):
+        raise ValueError(f"roi_align_sum: bias {tuple(bias.shape)} is not {(b, r, c)}")
+    if rois.device != first.device or (bias is not None and bias.device != first.device):
+        raise ValueError("roi_align_sum: maps, rois and bias must be on one device")
+    for ratio, pool_from in zip(sampling_ratios, pool_froms):
+        if ratio < 0 or (pool_from is not None and (pool_from <= 0 or pool_from % output_size
+                                                   or ratio)):
+            raise ValueError("roi_align_sum: pool_from must be a multiple of output_size, "
+                             "with sampling_ratio 0")
+    if first.device.type == "cpu":
+        return roi_align_sum_plain(feats, rois, spatial_scales, output_size, sampling_ratios,
+                                   pool_froms, bias, max_grid)
+    if first.device.type != "cuda":
+        raise ValueError(f"roi_align_sum: unsupported device {first.device}")
+    if first.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"roi_align_sum: kernel takes bf16 or f32 maps, not {first.dtype}")
+    if min(output_size, max_grid) < 1:
+        raise ValueError(f"roi_align_sum: out={output_size} max_grid={max_grid}")
+    out = first.new_empty((b, r, output_size, output_size, c))
     if out.numel() == 0:
         return out
 
+    import ctypes
+
     from nuhtc_tpu_torch import kernels
 
-    feat_c = feat.contiguous()
+    feats_c = [f.contiguous() for f in feats]
     rois_c = rois.to(torch.float32).contiguous()
-    code = kernels.load().roi_align_launch(
-        feat_c.data_ptr(), rois_c.data_ptr(), out.data_ptr(), b, h, w, c, r, output_size,
-        sampling_ratio, max_grid, pool_from or 0, int(feat.dtype == torch.bfloat16),
-        float(spatial_scale), torch.cuda.current_stream(feat.device).cuda_stream)
-    kernels.check(code, "roi_align")
+    bias_c = None if bias is None else bias.to(torch.float32).contiguous()
+    dims = []
+    for f, ratio, pool_from in zip(feats_c, sampling_ratios, pool_froms):
+        dims += [f.shape[1], f.shape[2], int(ratio), int(pool_from or 0)]
+    code = kernels.load().roi_align_sum_launch(
+        (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats_c]), (ctypes.c_int * (4 * n))(*dims),
+        (ctypes.c_float * n)(*[float(s) for s in spatial_scales]), n, rois_c.data_ptr(),
+        None if bias_c is None else bias_c.data_ptr(), out.data_ptr(), b, r, c, output_size,
+        max_grid, int(first.dtype == torch.bfloat16),
+        torch.cuda.current_stream(first.device).cuda_stream)
+    kernels.check(code, "roi_align_sum")
     roi_align.launches += 1
     return out
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int,
+              sampling_ratio: int = 0, max_grid: int = 8,
+              pool_from: int | None = None) -> torch.Tensor:
+    """K4 on one map, without bias. feat (B, H, W, C) bf16 or f32, rois
+    (B, R, 4) image coords → (B, R, out, out, C) in feat.dtype, f32 sums.
+
+    CPU tensors take ``roi_align_plain``; CUDA tensors launch the kernel.
+    ``roi_align.launches`` counts every launch of the kernel, through this
+    wrapper or ``roi_align_sum``."""
+    return roi_align_sum([feat], rois, [spatial_scale], output_size, [sampling_ratio],
+                         [pool_from], None, max_grid)
 
 
 roi_align.launches = 0
 
 
 def attention_pool(feat: torch.Tensor, rois: torch.Tensor, stride: int, thres: float,
-                   eps: float = 1e-8) -> torch.Tensor:
+                   eps: float = 1e-8, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Cosine-similarity attention pooling of AttentionRoIExtractor's coarse
     levels. feat (B, H, W, C), rois (B, R, 4) → (B, R, C): the mean over the
-    level of feat · (relu(cos(centre cell, cell) - thres) + thres)."""
+    level of feat · (relu(cos(centre cell, cell) - thres) + thres), in
+    ``out_dtype`` (feat's type when None)."""
     b, h, w, c = feat.shape
     cx = torch.floor((rois[..., 0] + rois[..., 2]) / (2.0 * stride)).clamp(0, w - 1).long()
     cy = torch.floor((rois[..., 1] + rois[..., 3]) / (2.0 * stride)).clamp(0, h - 1).long()
@@ -151,5 +220,5 @@ def attention_pool(feat: torch.Tensor, rois: torch.Tensor, stride: int, thres: f
     denom = (flat.norm(dim=-1)[:, :, None] * center.norm(dim=-1)[:, None, :]).clamp(min=eps)
     sim = torch.relu(dots / denom - thres) + thres
     pooled = (sim.to(md).transpose(1, 2) @ flat.to(md)).float() / (h * w)  # (B, R, C)
-    return pooled.to(feat.dtype)
+    return pooled.to(out_dtype or feat.dtype)
 

@@ -17,7 +17,9 @@ positive-objectness logit raised so detections exist, it prints:
 - one batch under ``torch.profiler``: the device's summed kernel and copy
   time, the idle share that leaves of an untraced batch, the kernels with
   the most device time, and every kernel of ``csrc/`` with its time per
-  launch (the Swin kernels' template arguments name the width).
+  launch (the Swin kernels' template arguments name the width; K4 is
+  ``roi_align_sum_kernel``, 4 launches a forward, K3 ``strip_stats_kernel``
+  and ``reduce_strips_kernel``).
 The card's name and power limit are printed first, then one JSON line per
 contract.
 """

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from nuhtc_tpu_torch.ops import components as tc
-from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+from nuhtc_tpu_torch.ops.roi_align import (
+    roi_align, roi_align_plain, roi_align_sum, roi_align_sum_plain,
+)
 from nuhtc_tpu_torch.ops.window_block import (
     BlockParams, bias_fragments, window_attention, window_attention_plain, window_block, window_block_plain,
 )
@@ -442,3 +444,179 @@ def test_roi_align_kernel_raises_on_bad_input(cuda):
         roi_align(feat, rois.cpu(), 0.25, 7, sampling_ratio=2)
     with pytest.raises(ValueError):
         roi_align(feat, rois, 0.25, 7, pool_from=10)
+
+
+# the two stage shapes of the detector: (out, sampling ratio of the levels, semantic pool_from)
+STAGE_SHAPES = [(7, 2, 14), (14, 0, None)]
+
+
+def _stage_case(device, dtype, c, seed=0):
+    """Two levels (strides 4 and 8) and a semantic map (stride 4) of
+    different sides, the boxes of ``_roi_case`` and a per-RoI bias."""
+    p2, rois = _roi_case(device, dtype, c=c, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    b, r = rois.shape[:2]
+    p3 = torch.from_numpy(rng.randn(b, 20, 16, c).astype(np.float32)).to(device, dtype)
+    sem = torch.from_numpy(rng.randn(b, 40, 32, c).astype(np.float32)).to(device, dtype)
+    bias = torch.from_numpy(rng.randn(b, r, c).astype(np.float32)).to(device)
+    return [p2, p3, sem], rois, bias
+
+
+def _stage_args(out, ratio, pool_from):
+    return ([0.25, 0.125, 0.25], out, [ratio, ratio, 0], [None, None, pool_from])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,ratio,pool_from", STAGE_SHAPES, ids=["bbox", "mask"])
+@pytest.mark.parametrize("c", [64, 20, 3])
+def test_roi_align_sum_kernel_matches_plain(cuda, out, ratio, pool_from, c):
+    """The fused stage call, one launch. f32: 1e-4 (another order of f32
+    sums). bf16: against the plain version on the f32 copies, one bf16
+    rounding of the sum (2^-7 of the summed largest magnitudes); the kernel
+    rounds once. c = 20 takes one channel per thread in bf16, c = 3 in both."""
+    maps, rois, bias = _stage_case(cuda, torch.float32, c)
+    scales, out, ratios, pools = _stage_args(out, ratio, pool_from)
+    before = roi_align.launches
+    got = roi_align_sum(maps, rois, scales, out, ratios, pools, bias=bias)
+    want = roi_align_sum_plain(maps, rois, scales, out, ratios, pools, bias=bias)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 1
+    assert got.shape == want.shape == (2, 96, out, out, c) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-4
+    assert want.abs().max().item() > 0.5
+    maps16 = [m.bfloat16() for m in maps]
+    got16 = roi_align_sum(maps16, rois, scales, out, ratios, pools, bias=bias)
+    want16 = roi_align_sum_plain([m.float() for m in maps16], rois, scales, out, ratios, pools,
+                                 bias=bias)
+    assert got16.dtype == torch.bfloat16
+    tol = 2.0 ** -7 * (sum(m.abs().max().item() for m in maps) + bias.abs().max().item())
+    assert (got16.float() - want16).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_maps,with_bias", [(1, True), (2, False), (3, False)])
+def test_roi_align_sum_kernel_fewer_maps_and_no_bias(cuda, n_maps, with_bias):
+    maps, rois, bias = _stage_case(cuda, torch.float32, 64, seed=3)
+    scales, out, ratios, pools = _stage_args(7, 2, 14)
+    keep = [2, 0, 1][:n_maps]  # the semantic map (pool_from 14) first
+    args = ([maps[i] for i in keep], rois, [scales[i] for i in keep], out,
+            [ratios[i] for i in keep], [pools[i] for i in keep])
+    b = bias if with_bias else None
+    got = roi_align_sum(*args, bias=b)
+    want = roi_align_sum_plain(*args, bias=b)
+    assert (got - want).abs().max().item() <= 1e-4
+    # boxes wholly outside every map keep the bias alone
+    outside = got[:, 4]
+    expect = bias[:, 4, None, None, :].expand_as(outside) if with_bias else torch.zeros_like(outside)
+    assert torch.equal(outside, expect)
+    empty = roi_align_sum(args[0], rois[:, :0], *args[2:], bias=None)
+    assert tuple(empty.shape) == (2, 0, 7, 7, 64)
+
+
+@pytest.mark.cuda
+def test_roi_align_sum_kernel_large_grids_and_odd_sizes(cuda):
+    """max_grid 16 on a pool_from of three times the output (96 samples a bin
+    and axis on the largest box), an output size that is no multiple of
+    anything, one image."""
+    maps, rois, bias = _stage_case(cuda, torch.float32, 8, seed=5)
+    maps, rois, bias = [m[:1] for m in maps], rois[:1], bias[:1]
+    args = (maps, rois, [0.25, 0.125, 0.25], 5, [3, 0, 0], [None, None, 15])
+    got = roi_align_sum(*args, bias=bias, max_grid=16)
+    want = roi_align_sum_plain(*args, bias=bias, max_grid=16)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_roi_align_sum_kernel_raises_on_what_it_does_not_take(cuda):
+    maps, rois, bias = _stage_case(cuda, torch.float32, 64)
+    scales, out, ratios, pools = _stage_args(7, 2, 14)
+    before = roi_align.launches
+    with pytest.raises(ValueError):  # four maps
+        roi_align_sum(maps + maps[:1], rois, scales + [0.25], out, ratios + [0], pools + [None])
+    with pytest.raises(ValueError):  # mixed types
+        roi_align_sum([maps[0].bfloat16()] + maps[1:], rois, scales, out, ratios, pools)
+    with pytest.raises(ValueError):  # mixed devices
+        roi_align_sum([maps[0].cpu()] + maps[1:], rois, scales, out, ratios, pools)
+    with pytest.raises(ValueError):  # channel counts differ
+        roi_align_sum([maps[0][..., :32]] + maps[1:], rois, scales, out, ratios, pools)
+    with pytest.raises(ValueError):  # pool_from no multiple of the output
+        roi_align_sum(maps, rois, scales, out, ratios, [None, None, 10])
+    with pytest.raises(ValueError):  # pool_from with a sampling ratio
+        roi_align_sum(maps, rois, scales, out, [2, 2, 2], pools)
+    with pytest.raises(ValueError):  # bias of another shape
+        roi_align_sum(maps, rois, scales, out, ratios, pools, bias=bias[:, :-1])
+    with pytest.raises(ValueError):  # a list too short
+        roi_align_sum(maps, rois, scales[:2], out, ratios, pools)
+    with pytest.raises(ValueError):  # f16 maps
+        roi_align_sum([m.half() for m in maps], rois, scales, out, ratios, pools)
+    assert roi_align.launches == before
+
+
+def _check_component_stats(lab, roots, launches=1):
+    before = tc.component_stats.launches
+    boxes, areas = tc.component_stats(lab, roots)
+    pb, pa = tc.component_stats_plain(lab, roots)
+    torch.cuda.synchronize()
+    assert tc.component_stats.launches == before + launches
+    assert torch.equal(boxes, pb) and torch.equal(areas, pa)
+    return boxes, areas
+
+
+@pytest.mark.cuda
+def test_component_stats_kernel_duplicate_unsorted_and_out_of_range_ids(cuda):
+    lab, roots = _labels(cuda)
+    hw = lab.shape[1] * lab.shape[2]
+    roots = roots.clone()
+    roots[:, 7] = roots[:, 2]  # duplicates, of a component and (the padding) of the background
+    roots[:, 300] = roots[:, 2]
+    roots[:, 3] = -5  # out of range: no pixel
+    roots[:, 4] = hw + 1
+    roots[:, 5] = 2 ** 31 - 1
+    roots = roots.flip(1).contiguous()  # descending, padding first
+    boxes, areas = _check_component_stats(lab, roots)
+    k = roots.shape[1]
+    assert torch.equal(areas[:, k - 1 - 7], areas[:, k - 1 - 2]) and int(areas[0, k - 1 - 2]) > 0
+    assert int(areas[:, k - 1 - 3].abs().sum() + areas[:, k - 1 - 4].abs().sum()) == 0
+    assert float(boxes[0, k - 1 - 5, 0]) == 1e9
+    # the padding id collects the background
+    assert int(areas[0, 0]) == int((lab[0] == hw).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,k", [(96, 1), (90, 40), (33, 700)], ids=["k1", "w90", "w33"])
+def test_component_stats_kernel_other_sizes(cuda, size, k):
+    """Widths that forbid 16-byte loads, one id, more ids than components."""
+    rng = np.random.RandomState(size)
+    mask = torch.from_numpy(rng.rand(3, size, size) < 0.45).to(cuda)
+    lab = tc.label_components_raw(mask)
+    roots, _ = tc.first_roots(lab, mask, k)
+    _check_component_stats(lab, roots)
+
+
+@pytest.mark.cuda
+def test_component_stats_kernel_all_background_and_no_background(cuda):
+    hw = 64 * 64
+    lab = torch.full((2, 64, 64), hw, dtype=torch.int32, device=cuda)
+    lab[1] = 0  # one component fills the second image
+    roots = torch.full((2, 16), hw, dtype=torch.int32, device=cuda)
+    roots[:, 0] = 0
+    boxes, areas = _check_component_stats(lab, roots)
+    assert areas[:, :2].tolist() == [[0, hw], [hw, 0]]
+    assert boxes[0, 1].tolist() == [0.0, 0.0, 64.0, 64.0] and boxes[0, 0, 0].item() == 1e9
+
+
+@pytest.mark.cuda
+def test_component_stats_kernel_many_ids(cuda):
+    """K = 8192 is more than a launch serves: the ids go in two launches, and
+    an id listed in both gets the same numbers from each."""
+    rng = np.random.RandomState(1)
+    mask = torch.from_numpy(rng.rand(2, 128, 128) < 0.4).to(cuda)
+    lab = tc.label_components_raw(mask)
+    roots, valid = tc.first_roots(lab, mask, 8192)
+    assert int(valid.sum(1).min()) > 512
+    roots = roots.clone()
+    roots[:, -1] = roots[:, 0]
+    roots[:, -2] = -1
+    boxes, areas = _check_component_stats(lab, roots, launches=2)
+    assert torch.equal(boxes[:, -1], boxes[:, 0]) and torch.equal(areas[:, -1], areas[:, 0])
+    _check_component_stats(lab, roots[:, :4096].contiguous())

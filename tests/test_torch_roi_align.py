@@ -9,6 +9,11 @@ wrong. ``gather_reference`` below is the gather form the CUDA kernel uses
 (one bilinear sample at a time, per RoI and bin), written in numpy: the plain
 version must agree with it too, so the two formulations are pinned to each
 other on the CPU.
+
+``stage_roi_features`` (one ``roi_align_sum`` over two levels and the semantic
+map, with the attention pools as a per-RoI bias) against the sum of the JAX
+extractors it replaces, at both stage shapes of the detector, atol 1e-4; and
+``roi_align_sum``'s modes and errors on the CPU.
 """
 
 import math
@@ -21,8 +26,12 @@ import torch
 from nuhtc_tpu.models.roi_extractor import attention_roi_features as j_attn_feats
 from nuhtc_tpu.models.roi_extractor import single_roi_features as j_single_feats
 from nuhtc_tpu.ops.roi_align import roi_align as j_roi_align
-from nuhtc_tpu_torch.models.roi_extractor import attention_roi_features, single_roi_features
-from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_plain
+from nuhtc_tpu_torch.models.roi_extractor import (
+    attention_roi_features, single_roi_features, stage_roi_features,
+)
+from nuhtc_tpu_torch.ops.roi_align import (
+    attention_pool, roi_align, roi_align_plain, roi_align_sum, roi_align_sum_plain,
+)
 from torch_port_util import f32, n, t
 
 ATOL = 1e-4
@@ -174,3 +183,114 @@ def test_extractors_match_jax(out_size, sampling_ratio):
                                       pool_from=pool_from, exact=True)
         np.testing.assert_allclose(n(got[i]), np.asarray(want), atol=ATOL, rtol=0)
         np.testing.assert_allclose(n(got_sem[i]), np.asarray(want_sem), atol=ATOL, rtol=0)
+
+
+STAGES = {"bbox": (7, 2, 14), "mask": (14, 0, None)}
+
+
+def _stage_inputs(seed=5, c=8):
+    rng = np.random.RandomState(seed)
+    feats = [rng.randn(2, s, s, c).astype(np.float32) for s in (16, 8, 4, 2)]
+    sem = rng.randn(2, 16, 16, c).astype(np.float32)
+    rois = np.stack([_boxes(rng, 20, 64, 64) for _ in range(2)])
+    return feats, sem, rois
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+def test_stage_roi_features_match_jax_extractor_sum(stage):
+    out_size, sampling_ratio, pool_from = STAGES[stage]
+    feats, sem, rois = _stage_inputs()
+    before = roi_align.launches
+    got = stage_roi_features([t(f) for f in feats], t(sem), t(rois), out_size, sampling_ratio,
+                             pool_from)
+    assert roi_align.launches == before  # the CPU takes the plain version
+    assert tuple(got.shape) == (2, 20, out_size, out_size, 8)
+    for i in range(2):
+        with f32():
+            want = j_attn_feats([jnp.asarray(f[i]) for f in feats], jnp.asarray(rois[i]),
+                                out_size, sampling_ratio, exact=True)
+            want = want + j_single_feats(jnp.asarray(sem[i]), jnp.asarray(rois[i]), out_size,
+                                         pool_from=pool_from, exact=True)
+        np.testing.assert_allclose(n(got[i]), np.asarray(want), atol=ATOL, rtol=0)
+    # and the port's own unfused composition
+    old = (attention_roi_features([t(f) for f in feats], t(rois), out_size, sampling_ratio)
+           + single_roi_features(t(sem), t(rois), out_size, pool_from=pool_from))
+    np.testing.assert_allclose(n(got), n(old), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+def test_roi_align_sum_plain_is_the_sum_of_its_parts(stage):
+    out_size, sampling_ratio, pool_from = STAGES[stage]
+    feats, sem, rois = _stage_inputs(seed=6)
+    maps = [t(feats[0]), t(feats[1]), t(sem)]
+    args = (t(rois), [0.25, 0.125, 0.25], out_size, [sampling_ratio, sampling_ratio, 0],
+            [None, None, pool_from])
+    bias = t(np.random.RandomState(1).randn(2, 20, 8).astype(np.float32))
+    got = roi_align_sum_plain(maps, *args, bias=bias)
+    want = sum(n(roi_align_plain(m, t(rois), sc, out_size, sr, 8, pf))
+               for m, sc, sr, pf in zip(maps, *[args[i] for i in (1, 3, 4)]))
+    want = want + n(bias)[:, :, None, None, :]
+    np.testing.assert_allclose(n(got), want, atol=1e-5, rtol=0)
+    assert torch.equal(roi_align_sum(maps, *args, bias=bias), got)
+    # bias None; one map is roi_align itself
+    assert torch.equal(roi_align_sum(maps, *args), roi_align_sum_plain(maps, *args))
+    np.testing.assert_allclose(n(roi_align_sum(maps, *args)), want - n(bias)[:, :, None, None, :],
+                               atol=1e-5, rtol=0)
+    one = roi_align_sum(maps[2:], t(rois), [0.25], out_size, [0], [pool_from])
+    assert torch.equal(one, roi_align(maps[2], t(rois), 0.25, out_size, pool_from=pool_from))
+
+
+def test_roi_align_sum_empty_rois_and_bf16_bias():
+    feats, sem, rois = _stage_inputs(seed=7)
+    maps = [t(feats[0]), t(feats[1]), t(sem)]
+    args = ([0.25, 0.125, 0.25], 7, [2, 2, 0], [None, None, 14])
+    got = roi_align_sum(maps, t(rois[:, :0]), *args, bias=torch.zeros(2, 0, 8))
+    assert tuple(got.shape) == (2, 0, 7, 7, 8)
+    # bf16 maps: the result keeps the maps' type, the f32 bias is rounded into it
+    bias = t(np.random.RandomState(2).randn(2, 20, 8).astype(np.float32))
+    got16 = roi_align_sum([m.bfloat16() for m in maps], t(rois), *args, bias=bias)
+    ref = roi_align_sum([m.bfloat16().float() for m in maps], t(rois), *args, bias=bias)
+    assert got16.dtype == torch.bfloat16
+    assert (got16.float() - ref).abs().max().item() <= 0.25  # a few bf16 roundings of sums ~10
+
+
+def test_attention_pool_out_dtype():
+    feats, _, rois = _stage_inputs(seed=8)
+    f16 = t(feats[2]).bfloat16()
+    kept = attention_pool(f16, t(rois), 16, 0.965926, out_dtype=torch.float32)
+    assert kept.dtype == torch.float32
+    assert attention_pool(f16, t(rois), 16, 0.965926).dtype == torch.bfloat16
+    assert torch.equal(kept.bfloat16(), attention_pool(f16, t(rois), 16, 0.965926))
+
+
+@pytest.mark.parametrize("fault", ["four_maps", "no_map", "mixed_types", "channels", "batch",
+                                   "pool_from", "pool_from_with_ratio", "bias_shape",
+                                   "short_list", "rois_shape"])
+def test_roi_align_sum_raises_on_what_it_does_not_take(fault):
+    feats, sem, rois = _stage_inputs(seed=9)
+    maps = [t(feats[0]), t(feats[1]), t(sem)]
+    rois = t(rois)
+    scales, ratios, pools = [0.25, 0.125, 0.25], [2, 2, 0], [None, None, 14]
+    bias = None
+    if fault == "four_maps":
+        maps, scales, ratios, pools = maps + maps[:1], scales + [0.25], ratios + [0], pools + [None]
+    elif fault == "no_map":
+        maps, scales, ratios, pools = [], [], [], []
+    elif fault == "mixed_types":
+        maps[1] = maps[1].bfloat16()
+    elif fault == "channels":
+        maps[2] = maps[2][..., :4]
+    elif fault == "batch":
+        maps[1] = maps[1][:1]
+    elif fault == "pool_from":
+        pools = [None, None, 10]
+    elif fault == "pool_from_with_ratio":
+        ratios = [2, 2, 2]
+    elif fault == "bias_shape":
+        bias = torch.zeros(2, 19, 8)
+    elif fault == "short_list":
+        scales = scales[:2]
+    else:
+        rois = rois[..., :3]
+    with pytest.raises(ValueError):
+        roi_align_sum(maps, rois, scales, 7, ratios, pools, bias=bias)
