@@ -46,7 +46,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      tier "attn"; per forward K2 12 times, K4 4 times, K3 at least once;
      masks (n, 256, 256) uint8 of 0/1; tiles/s and the collect split. Then
      flip TTA on 4 tiles: no more detections than the three views
-     together, kept boxes inside the tile.
+     together, kept boxes inside the tile;
+  8. the whole-slide path: a synthetic H&E-like slide from a seed (2304²,
+     levels 1 to 32) through ``segment_tissue`` → ``grid_coords`` (256² tiles
+     at step 192) → ``infer_slide(mode="all")`` on the WSI-mode engine
+     (tier block) into a temporary directory; every tile processed, nuclei
+     found, every export file parses and they agree on the count (GeoJSON
+     features = points = DSA elements = SQLite rows = rtree rows = COCO
+     annotations, COCO images = tiles), every ring closed with ≥ 4 points
+     inside the slide, the kernels' launches per forward as in 6, the four
+     timing parts within the wall time; tiles/s, the parts and stage A's
+     seconds are printed.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
@@ -549,6 +559,92 @@ def phase_strict(device):
     return counts
 
 
+def phase_slide(device):
+    """Stage A and stage B over a synthetic slide, through the entry points
+    of the whole-slide path, on the WSI-mode engine (tier "block")."""
+    import sqlite3
+    import tempfile
+
+    import torch
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.data.classes import dataset_classes
+    from nuhtc_tpu_torch.tools.synthetic import lift_objectness, slide_and_grid
+    from nuhtc_tpu_torch.wsi.infer import infer_slide
+
+    side = 2304
+    slide, seg, coords, stage_a = slide_and_grid(side, seed=0, tile=TILE, step=192)
+    n_holes = sum(len(h) for h in seg.holes)
+    if seg.downsample != 32.0 or len(seg.contours) < 2 or n_holes < 1 or not 48 <= len(coords) <= 128:
+        raise AssertionError(f"stage A: level downsample {seg.downsample}, {len(seg.contours)} "
+                             f"regions, {n_holes} holes, {len(coords)} tiles")
+    log(f"slide stage A: {side}² slide segmented at downsample {seg.downsample:g}: "
+        f"{len(seg.contours)} tissue regions, {n_holes} holes, {len(coords)} tiles of {TILE}² at "
+        f"step 192 in {stage_a:.3f} s")
+
+    engine = init_detector(CONFIG, None, batch_size=BATCH, device_preprocess=True,
+                           compact_masks=True, swin_kernel="block")
+    if engine.device.type != device.type:
+        raise AssertionError("init_detector did not take the card")
+    lift_objectness(engine.model)
+    engine.run_batch([slide.read_region((int(x), int(y)), 0, (TILE, TILE))
+                      for x, y in coords[:BATCH]])  # warm-up
+    torch.cuda.synchronize()
+    classes = dataset_classes("PanNukeCocoDataset")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_counts()
+        stats = infer_slide(engine, slide, coords, out_dir, "slide", classes, patch_size=TILE,
+                            mode="all", progress=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+
+        def load(name):
+            with open(os.path.join(out_dir, name)) as f:
+                return json.load(f)
+
+        feats, points = load("slide.geojson"), load("slide_point.geojson")
+        dsa, coco = load("slide_dsa.json"), load("coco_nuclei.json")
+        conn = sqlite3.connect(os.path.join(out_dir, "slide_dql.db"))
+        n_rows = conn.execute("SELECT COUNT(*) FROM contour").fetchone()[0]
+        n_rtree = conn.execute("SELECT COUNT(*) FROM rtree").fetchone()[0]
+        conn.close()
+        n_png = len(os.listdir(os.path.join(out_dir, "patches")))
+
+    n = stats["nuclei"]
+    tally = dict(features=len(feats), points=len(points), dsa=len(dsa["elements"]),
+                 coco_annotations=len(coco["annotations"]), sql_rows=n_rows, rtree_rows=n_rtree)
+    if stats["tiles"] != len(coords) or n <= 0 or set(tally.values()) != {n}:
+        raise AssertionError(f"slide: {stats['tiles']} of {len(coords)} tiles, {n} nuclei, "
+                             f"exports {tally}")
+    if len(coco["images"]) != len(coords) or n_png != len(coords):
+        raise AssertionError(f"slide: COCO lists {len(coco['images'])} images, {n_png} patch "
+                             f"PNGs, for {len(coords)} tiles")
+    # a tile may hang over the slide's edge by less than a tile
+    limit = side + TILE
+    for feat, point in zip(feats, points):
+        ring = np.asarray(feat["geometry"]["coordinates"][0])
+        if (len(ring) < 4 or (ring[0] != ring[-1]).any() or ring.min() < 0 or ring.max() > limit
+                or not 0 <= feat["properties"]["label"] < len(classes)
+                or not np.isfinite(feat["properties"]["score"])):
+            raise AssertionError(f"slide: bad feature {feat}")
+        xy = np.asarray(point["geometry"]["coordinates"])
+        if not (np.isfinite(xy).all() and xy.min() >= 0 and xy.max() <= limit):
+            raise AssertionError(f"slide: bad point {point}")
+    forwards = -(-len(coords) // BATCH)
+    check_counts("slide path", counts, forwards, "window_block")
+    parts = ("read_wait_s", "dispatch_s", "collect_s", "post_s")
+    if sum(stats[k] for k in parts) > stats["seconds"]:
+        raise AssertionError(f"slide: timing parts exceed the wall time: {stats}")
+    if stats["collect_device_s"] + stats["collect_download_s"] > stats["collect_s"]:
+        raise AssertionError(f"slide: collect's split exceeds collect: {stats}")
+    log(f"slide stage B (WSI mode, tier block, mode all): {stats['tiles']} tiles, {n} nuclei in "
+        f"{stats['seconds']:.3f} s = {stats['tiles_per_sec']:.2f} tiles/s over {forwards} forwards; "
+        f"read_wait {stats['read_wait_s']:.3f} s, dispatch {stats['dispatch_s']:.3f} s, collect "
+        f"{stats['collect_s']:.3f} s (device wait {stats['collect_device_s']:.3f} s, download "
+        f"{stats['collect_download_s']:.3f} s), post {stats['post_s']:.3f} s; launches {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -590,12 +686,14 @@ def main() -> int:
     phase_reference(device)
     wsi = phase_slice(device)
     strict = phase_strict(device)
+    slide = phase_slide(device)
 
     def entry(name, source, replaces, measured):
-        # launches: over both driven paths; no single PyTorch call computes K1-K4
+        # launches: over the driven paths; no single PyTorch call computes K1-K4
         return {"name": name, "route": "cuda", "source": f"nuhtc_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": wsi[name] + strict[name],
-                "launches_by_path": {"wsi": wsi[name], "strict": strict[name]},
+                "replaces": replaces, "launches": wsi[name] + strict[name] + slide[name],
+                "launches_by_path": {"wsi": wsi[name], "strict": strict[name],
+                                     "slide": slide[name]},
                 **measured, "library_ms": None}
 
     pallas = "nuhtc_tpu/ops/window_attention_pallas.py"

@@ -1,18 +1,93 @@
-"""COCO-compatible RLE mask API in numpy (port of nuhtc_tpu/ops/rle.py).
+"""COCO-compatible RLE mask API (port of nuhtc_tpu/ops/rle.py).
 
-Equivalents of the pycocotools.mask functions the engine and the evaluation
-use (encode/decode/area/toBbox/iou/merge), implemented from the RLE format
-spec. The JAX package puts a small C library in front of the same numpy
-code; the port has the numpy code only, with the same results.
+Equivalents of the pycocotools.mask functions the engine, the slide path and
+the evaluation use (encode/decode/area/toBbox/iou/merge), implemented from
+the RLE format spec: in numpy (the plain version, ``*_plain``), and in a
+small C library (``csrc/rle.c``) that the host's C compiler builds at first
+use into ``build/nuhtc_tpu_torch/``. Both give the same results.
+
+Which one runs is ``NATIVE``'s say: ``None`` (the default) takes the library
+wherever a C compiler is installed and numpy where there is none; ``True``
+requires the library; ``False`` is numpy only. A compiler that is there and
+fails raises with its output in every mode but ``False``: a broken build is
+never passed over.
 
 RLE dict format matches pycocotools: {"size": [h, w], "counts": bytes}.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+NATIVE: Optional[bool] = None
+_COMPILERS = ("cc", "gcc", "clang")
+_lib_cache: Dict[str, ctypes.CDLL] = {}
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
+_I64 = ctypes.c_int64
+
+
+def _build_library() -> str:
+    """Compiles csrc/rle.c unless a library for this source exists; returns
+    its path, or "" when no C compiler is installed."""
+    from nuhtc_tpu_torch.kernels import BUILD_DIR, CSRC
+
+    src = os.path.join(CSRC, "rle.c")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"librle_{digest}.so")
+    if os.path.exists(path):
+        return path
+    cc = next((c for c in map(shutil.which, _COMPILERS) if c), None)
+    if cc is None:
+        return ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, "librle.so")
+        res = subprocess.run([cc, "-O2", "-shared", "-fPIC", src, "-o", out],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cc} failed to build {src} ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(out, path)
+    return path
+
+
+def native_library() -> Optional[ctypes.CDLL]:
+    """The C library as ``NATIVE`` asks for it, or None for the numpy code."""
+    if NATIVE is False:
+        return None
+    if "lib" not in _lib_cache:
+        path = _build_library()
+        if not path:
+            if NATIVE:
+                raise RuntimeError(f"the native RLE library was asked for and no C compiler "
+                                   f"({', '.join(_COMPILERS)}) is installed")
+            return None
+        lib = ctypes.CDLL(path)
+        lib.rle_encode.restype = _I64
+        lib.rle_encode.argtypes = [_U8P, _I64, _I64, _U32P, _I64]
+        lib.rle_decode.restype = None
+        lib.rle_decode.argtypes = [_U32P, _I64, _U8P, _I64]
+        lib.rle_iou.restype = None
+        lib.rle_iou.argtypes = [_U32P, _I64P, _I64P, _I64, _U32P, _I64P, _I64P, _I64, _U8P, _F64P]
+        lib.rle_string_encode.restype = _I64
+        lib.rle_string_encode.argtypes = [_U32P, _I64, ctypes.c_char_p, _I64]
+        lib.rle_string_decode.restype = _I64
+        lib.rle_string_decode.argtypes = [ctypes.c_char_p, _I64, _U32P, _I64]
+        _lib_cache["lib"] = lib
+    return _lib_cache["lib"]
 
 
 def _np_counts_from_mask(mask: np.ndarray) -> np.ndarray:
@@ -75,10 +150,23 @@ def _np_string_decode(s: bytes) -> np.ndarray:
     return np.asarray(counts, np.uint32)
 
 
-def encode(mask: np.ndarray) -> Dict:
-    """Binary mask (H, W) → RLE dict with compressed bytes counts."""
+def encode_plain(mask: np.ndarray) -> Dict:
     h, w = mask.shape
     return {"size": [h, w], "counts": _np_string_encode(_np_counts_from_mask(mask))}
+
+
+def encode(mask: np.ndarray) -> Dict:
+    """Binary mask (H, W) → RLE dict with compressed bytes counts."""
+    lib = native_library()
+    if lib is None:
+        return encode_plain(mask)
+    h, w = mask.shape
+    flat = np.ascontiguousarray(np.asarray(mask).ravel(order="F"), np.uint8)
+    counts = np.empty(h * w + 2, np.uint32)
+    m = lib.rle_encode(flat.ctypes.data_as(_U8P), h, w, counts.ctypes.data_as(_U32P), len(counts))
+    buf = ctypes.create_string_buffer(6 * m + 16)
+    n = lib.rle_string_encode(counts.ctypes.data_as(_U32P), m, buf, len(buf))
+    return {"size": [h, w], "counts": buf.raw[:n]}
 
 
 def _counts_of(rle: Dict) -> np.ndarray:
@@ -87,12 +175,33 @@ def _counts_of(rle: Dict) -> np.ndarray:
         return np.asarray(c, np.uint32)
     if isinstance(c, str):
         c = c.encode()
-    return _np_string_decode(c)
+    lib = native_library()
+    if lib is None:
+        return _np_string_decode(c)
+    counts = np.empty(len(c) + 4, np.uint32)
+    m = lib.rle_string_decode(c, len(c), counts.ctypes.data_as(_U32P), len(counts))
+    if m < 0:
+        raise ValueError("malformed RLE counts string")
+    return counts[:m]
+
+
+def decode_plain(rle: Dict) -> np.ndarray:
+    c = rle["counts"]
+    if isinstance(c, (bytes, str)):
+        c = _np_string_decode(c.encode() if isinstance(c, str) else c)
+    return _np_mask_from_counts(np.asarray(c, np.uint32), *rle["size"])
 
 
 def decode(rle: Dict) -> np.ndarray:
+    lib = native_library()
+    if lib is None:
+        return decode_plain(rle)
     h, w = rle["size"]
-    return _np_mask_from_counts(_counts_of(rle), h, w)
+    counts = _counts_of(rle)
+    mask = np.zeros(h * w, np.uint8)
+    lib.rle_decode(np.ascontiguousarray(counts).ctypes.data_as(_U32P), len(counts),
+                   mask.ctypes.data_as(_U8P), h * w)
+    return mask.reshape((h, w), order="F")
 
 
 def area(rle: Dict) -> int:
@@ -120,20 +229,44 @@ def toBbox(rle: Dict) -> np.ndarray:
     return np.array([x1, y1, x2 - x1 + 1, y2 - y1 + 1], np.float64)
 
 
+def _flatten(counts: List[np.ndarray]):
+    lengths = np.asarray([len(c) for c in counts], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    return np.concatenate(counts).astype(np.uint32), offsets, lengths
+
+
 def iou(dt: Sequence[Dict], gt: Sequence[Dict], iscrowd: Sequence[int] | None = None) -> np.ndarray:
     """Pairwise IoU matrix (len(dt), len(gt)); iscrowd → IoF for that gt.
+    The library sweeps each pair's runs; without it, ``iou_plain``."""
+    nd, ng = len(dt), len(gt)
+    lib = native_library()
+    if nd == 0 or ng == 0 or lib is None:
+        return iou_plain(dt, gt, iscrowd)
+    crowd = np.asarray(iscrowd if iscrowd is not None else [0] * ng, np.uint8)
+    d_flat, d_off, d_len = _flatten([_counts_of(r) for r in dt])
+    g_flat, g_off, g_len = (d_flat, d_off, d_len) if gt is dt else _flatten(
+        [_counts_of(r) for r in gt])
+    out = np.zeros(nd * ng, np.float64)
+    lib.rle_iou(d_flat.ctypes.data_as(_U32P), d_off.ctypes.data_as(_I64P),
+                d_len.ctypes.data_as(_I64P), nd, g_flat.ctypes.data_as(_U32P),
+                g_off.ctypes.data_as(_I64P), g_len.ctypes.data_as(_I64P), ng,
+                crowd.ctypes.data_as(_U8P), out.ctypes.data_as(_F64P))
+    return out.reshape(nd, ng)
 
-    Intersections are counted as products of the decoded 0/1 masks over the
-    pixels that both sets touch, in float32 while every count stays below
-    2^24 (exact there), in float64 above."""
+
+def iou_plain(dt: Sequence[Dict], gt: Sequence[Dict], iscrowd: Sequence[int] | None = None,
+              ) -> np.ndarray:
+    """``iou`` in numpy: intersections are counted as products of the decoded
+    0/1 masks over the pixels that both sets touch, in float32 while every
+    count stays below 2^24 (exact there), in float64 above."""
     nd, ng = len(dt), len(gt)
     if nd == 0 or ng == 0:
         return np.zeros((nd, ng))
     crowd = np.asarray(iscrowd if iscrowd is not None else [0] * ng, np.uint8)
     h, w = dt[0]["size"]
-    dmasks = np.stack([decode(r).ravel() for r in dt]).astype(bool)
+    dmasks = np.stack([decode_plain(r).ravel() for r in dt]).astype(bool)
     same = gt is dt
-    gmasks = dmasks if same else np.stack([decode(r).ravel() for r in gt]).astype(bool)
+    gmasks = dmasks if same else np.stack([decode_plain(r).ravel() for r in gt]).astype(bool)
     da = dmasks.sum(1, dtype=np.int64).astype(np.float64)[:, None]
     ga = gmasks.sum(1, dtype=np.int64).astype(np.float64)[None, :]
     both = np.flatnonzero(dmasks.any(0) & gmasks.any(0))

@@ -1,9 +1,12 @@
 """Synthetic inputs for runs without data or a checkpoint (the smoke run and
 the stage profile): blob tiles from a seed, and a lift of the objectness
 logit so that random weights yield detections; and the kernels' inputs at
-the main path's shapes (boxes and maps for K4, a blob mask for K3)."""
+the main path's shapes (boxes and maps for K4, a blob mask for K3); and a
+whole slide: tissue regions of that blob texture on a near-white ground."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -23,6 +26,55 @@ def synthetic_tiles(rng: np.random.RandomState, n: int, size: int = 256) -> list
             img[y:y + 64, x:x + 64, 2] -= 30 * blob
         tiles.append(np.clip(img, 0, 255).astype(np.uint8))
     return tiles
+
+
+def synthetic_slide(rng: np.random.RandomState, size: int = 2304) -> np.ndarray:
+    """A uint8 (size, size, 3) H&E-like slide: near-white, almost colourless
+    ground; a large irregular tissue region with a hole and a smaller second
+    region, both pink with the dark blobs of ``synthetic_tiles`` at its
+    density (20 per 256²). Regions are unions of random discs on a grid of
+    16-pixel cells."""
+    cells = size // 16
+    yy, xx = np.mgrid[:cells, :cells] / float(cells)
+
+    def discs(n, centre, spread, radius):
+        out = np.zeros((cells, cells), bool)
+        for _ in range(n):
+            cy, cx = centre + rng.uniform(-spread, spread, 2)
+            out |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rng.uniform(0.6, 1.0) * radius ** 2
+        return out
+
+    tissue = discs(8, np.array([0.40, 0.40]), 0.10, 0.29)
+    tissue &= ~discs(2, np.array([0.40, 0.38]), 0.03, 0.09)  # the hole
+    tissue |= discs(3, np.array([0.86, 0.86]), 0.02, 0.13)
+    tissue = np.kron(tissue, np.ones((16, 16), bool))
+
+    grey = rng.randint(238, 246, (size, size, 1)) + rng.randint(-1, 2, (size, size, 3))
+    img = rng.randint(160, 230, (size, size, 3)).astype(np.int16)
+    img[..., 1] -= 40  # pink: less green
+    yb, xb = np.mgrid[:64, :64]
+    blob = ((yb - 32) ** 2 + (xb - 32) ** 2 <= 150).astype(np.int16)
+    for _ in range(20 * (size // 256) ** 2):
+        y, x = rng.randint(0, size - 64, 2)
+        img[y:y + 64, x:x + 64, 0] -= 60 * blob
+        img[y:y + 64, x:x + 64, 2] -= 30 * blob
+    return np.where(tissue[..., None], np.clip(img, 0, 255), grey).astype(np.uint8)
+
+
+def slide_and_grid(side: int = 2304, seed: int = 0, tile: int = 256, step: int = 192):
+    """The synthetic slide as an ``ArraySlide`` with levels 1 to 32, its
+    tissue segmentation and tile grid (stage A), and stage A's seconds. The
+    area limits are scaled for a slide this small: ``ref_patch_size=64``
+    makes them 200 and 32 pixels of the level segmented, where a scanner's
+    slide takes the default 512."""
+    from nuhtc_tpu_torch.wsi.slide import ArraySlide
+    from nuhtc_tpu_torch.wsi.tissue import grid_coords, segment_tissue
+
+    slide = ArraySlide(synthetic_slide(np.random.RandomState(seed), side), (1, 2, 4, 8, 16, 32))
+    t0 = time.perf_counter()
+    seg = segment_tissue(slide, ref_patch_size=64)
+    coords = grid_coords(slide, seg, tile, step)
+    return slide, seg, coords, time.perf_counter() - t0
 
 
 def lift_objectness(model, logit: float = 3.0) -> None:

@@ -110,8 +110,14 @@ def test_port_never_imports_jax():
         assert len(res) == 1
         new = set(sys.modules) - before
         assert "nuhtc_tpu_torch.config.config" in new
+        walked = ("wsi.slide", "wsi.tissue", "wsi.stitch", "wsi.export", "wsi.infer",
+                  "ops.contours", "ops.imgproc", "utils.imageio", "tools.infer_wsi",
+                  "data.classes")
+        missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
+        assert not missing, missing
         bad = sorted(m for m in new
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu", "cv2", "pandas",
+                                            "skimage", "shapely", "h5py", "PIL"))
         print("IMPORTED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -136,6 +142,24 @@ def test_port_sources_name_no_jax_package_import():
     assert pat.search("from nuhtc_tpu.config import Config")
     assert pat.search("    import nuhtc_tpu") and pat.search("from nuhtc_tpu import x")
     assert not pat.search("from nuhtc_tpu_torch.config import Config")
+
+
+def test_port_sources_name_no_opencv_or_pandas_import():
+    """The port's host code stands without OpenCV, pandas, scikit-image and
+    shapely: no file of it, nor chip_smoke.py, names such an import. h5py and
+    PIL are named only inside the function that needs them (indented)."""
+    pat = re.compile(r"^\s*(import|from)\s+(cv2|pandas|skimage|shapely)(\.|\s|$)", re.M)
+    lazy = re.compile(r"^(import|from)\s+(h5py|PIL)(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "nuhtc_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert any(f.endswith(os.path.join("wsi", "infer.py")) for f in files)
+    sources = {os.path.relpath(f, REPO): open(f).read() for f in files}
+    assert not [f for f, text in sources.items() if pat.search(text)]
+    assert not [f for f, text in sources.items() if lazy.search(text)]
+    assert pat.search("import cv2") and pat.search("    from pandas import DataFrame")
+    assert lazy.search("import h5py") and not lazy.search("        import h5py")
+    assert not pat.search("# as cv2 does") and not pat.search("import cv2_free")
 
 
 def test_init_detector_takes_the_cpu_only_when_asked(monkeypatch):
