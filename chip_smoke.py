@@ -56,14 +56,31 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      annotations, COCO images = tiles), every ring closed with ≥ 4 points
      inside the slide, the kernels' launches per forward as in 6, the four
      timing parts within the wall time; tiles/s, the parts and stage A's
-     seconds are printed.
+     seconds are printed;
+  9. the offline whole-slide tools over step 8's output directory: (a)
+     ``merge_geojson_file`` on its GeoJSON (0 < kept ≤ features, every kept
+     feature one of the inputs; both counts printed: the 64 px tile overlap
+     reports nuclei twice); (b) ``extract_slide_features`` over the slide
+     and the merged file (at most ``FEATURE_PREFIX`` nuclei, the cut
+     printed): rows ≥ 90 % of the nuclei, the columns the port's feature
+     keys plus the context columns, every value finite, nuclei/s; (c)
+     ``vis_heatmap`` of per-tile scores (nuclei a tile × 100 / max) with
+     blur and the default colour map: an RGB uint8 image of the vis level's
+     size, written as a PNG; (d) the deep-feature path of
+     ``tools/extract_features_nuhtc`` (``iter_slide_features``, the batch
+     function without the .h5 writer, which needs h5py) over the 73 tiles
+     at B16 with ``init_detector``'s defaults: features (73, 256), finite,
+     12 K1 launches a forward and none of K2-K4, the first two tiles within
+     step 5's tolerance of the CPU in f32, tiles/s and its split (read,
+     stain/resize, host preprocess, forward, pool); then once more with
+     stain normalization, its seconds printed.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
-The line before the last is a JSON object with each kernel's launches, error,
-times and bound (the least time the card could take: the larger of the bytes
+The line before the last is a JSON object with each kernel's launches (also
+by path: wsi, strict, slide, embed), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
 """
@@ -74,6 +91,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -559,11 +577,11 @@ def phase_strict(device):
     return counts
 
 
-def phase_slide(device):
+def phase_slide(device, out_dir):
     """Stage A and stage B over a synthetic slide, through the entry points
-    of the whole-slide path, on the WSI-mode engine (tier "block")."""
+    of the whole-slide path, on the WSI-mode engine (tier "block"), into
+    ``out_dir``. Returns the launches, the slide, its segmentation and coords."""
     import sqlite3
-    import tempfile
 
     import torch
     from nuhtc_tpu_torch.apis.inference import init_detector
@@ -591,24 +609,23 @@ def phase_slide(device):
     torch.cuda.synchronize()
     classes = dataset_classes("PanNukeCocoDataset")
 
-    with tempfile.TemporaryDirectory() as out_dir:
-        reset_counts()
-        stats = infer_slide(engine, slide, coords, out_dir, "slide", classes, patch_size=TILE,
-                            mode="all", progress=False)
-        torch.cuda.synchronize()
-        counts = read_counts()
+    reset_counts()
+    stats = infer_slide(engine, slide, coords, out_dir, "slide", classes, patch_size=TILE,
+                        mode="all", progress=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
 
-        def load(name):
-            with open(os.path.join(out_dir, name)) as f:
-                return json.load(f)
+    def load(name):
+        with open(os.path.join(out_dir, name)) as f:
+            return json.load(f)
 
-        feats, points = load("slide.geojson"), load("slide_point.geojson")
-        dsa, coco = load("slide_dsa.json"), load("coco_nuclei.json")
-        conn = sqlite3.connect(os.path.join(out_dir, "slide_dql.db"))
-        n_rows = conn.execute("SELECT COUNT(*) FROM contour").fetchone()[0]
-        n_rtree = conn.execute("SELECT COUNT(*) FROM rtree").fetchone()[0]
-        conn.close()
-        n_png = len(os.listdir(os.path.join(out_dir, "patches")))
+    feats, points = load("slide.geojson"), load("slide_point.geojson")
+    dsa, coco = load("slide_dsa.json"), load("coco_nuclei.json")
+    conn = sqlite3.connect(os.path.join(out_dir, "slide_dql.db"))
+    n_rows = conn.execute("SELECT COUNT(*) FROM contour").fetchone()[0]
+    n_rtree = conn.execute("SELECT COUNT(*) FROM rtree").fetchone()[0]
+    conn.close()
+    n_png = len(os.listdir(os.path.join(out_dir, "patches")))
 
     n = stats["nuclei"]
     tally = dict(features=len(feats), points=len(points), dsa=len(dsa["elements"]),
@@ -642,7 +659,147 @@ def phase_slide(device):
         f"read_wait {stats['read_wait_s']:.3f} s, dispatch {stats['dispatch_s']:.3f} s, collect "
         f"{stats['collect_s']:.3f} s (device wait {stats['collect_device_s']:.3f} s, download "
         f"{stats['collect_download_s']:.3f} s), post {stats['post_s']:.3f} s; launches {counts}")
-    return counts
+    return counts, slide, seg, coords
+
+
+FEATURE_PREFIX = 4000  # at most this many merged nuclei go through the feature tool
+
+
+def phase_tools(device, out_dir, slide, seg, coords):
+    """The offline whole-slide tools over phase_slide's output: (a) the
+    cross-tile merge of its GeoJSON, (b) per-nucleus features of the merged
+    nuclei (a fixed prefix of them) from the slide, (c) a score heatmap, (d)
+    deep features of every tile on the card, with K1 in the Swin blocks,
+    held against the CPU in f32 on two tiles. Returns the launches of (d)."""
+    import csv
+
+    import torch
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.tools.extract_features_nuhtc import (
+        TIMING_KEYS, embed_batch, iter_slide_features)
+    from nuhtc_tpu_torch.tools.wsi_feat_extract import extract_slide_features
+    from nuhtc_tpu_torch.utils.imageio import write_png
+    from nuhtc_tpu_torch.wsi.features import nucleus_features
+    from nuhtc_tpu_torch.wsi.heatmap import vis_heatmap
+    from nuhtc_tpu_torch.wsi.merge import merge_geojson_file, polygon_of_feature
+
+    # (a) merge: the 64 px overlap of the tiles reports many nuclei twice
+    src = os.path.join(out_dir, "slide.geojson")
+    t0 = time.perf_counter()
+    merged_path = merge_geojson_file(src)
+    t_merge = time.perf_counter() - t0
+    with open(src) as f:
+        feats = json.load(f)
+    with open(merged_path) as f:
+        merged = json.load(f)
+    key = lambda feat: json.dumps([feat["geometry"], {k: v for k, v in feat["properties"].items()
+                                                      if k != "nuclei_id"}], sort_keys=True)
+    inputs = {key(feat) for feat in feats}
+    if not 0 < len(merged) <= len(feats) or any(key(feat) not in inputs for feat in merged):
+        raise AssertionError(f"merge: kept {len(merged)} of {len(feats)}, or kept a feature "
+                             "that is not an input")
+    log(f"tools (a) merge: {len(feats)} nuclei → {len(merged)} kept "
+        f"({len(feats) - len(merged)} cross-tile duplicates) in {t_merge:.3f} s")
+
+    # (b) per-nucleus features of a fixed prefix of the merged nuclei
+    part = merged[:FEATURE_PREFIX]
+    part_path = os.path.join(out_dir, "slide_merged_prefix.geojson")
+    with open(part_path, "w") as f:
+        json.dump(part, f)
+    out_csv = os.path.join(out_dir, "slide_features.csv")
+    t0 = time.perf_counter()
+    n_rows = extract_slide_features(slide, part_path, out_csv)
+    t_feat = time.perf_counter() - t0
+    with open(out_csv, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = list(reader)
+    probe = np.zeros((16, 16), np.uint8)
+    probe[4:12, 5:11] = 1
+    columns = list(nucleus_features(np.full((16, 16, 3), 128, np.uint8), probe)) + [
+        "label", "class", "score", "nucleus_id"]
+    numeric = [i for i, c in enumerate(header) if c != "class"]
+    values = np.asarray([[float(r[i]) for i in numeric] for r in rows])
+    if (header != columns or len(rows) != n_rows or n_rows < 0.9 * len(part)
+            or not np.isfinite(values).all()):
+        raise AssertionError(f"features: {n_rows} rows for {len(part)} nuclei, header "
+                             f"{header[:4]}..., finite {np.isfinite(values).all()}")
+    log(f"tools (b) per-nucleus features: {n_rows} rows × {len(header)} columns for the first "
+        f"{len(part)} of {len(merged)} merged nuclei (cut to {FEATURE_PREFIX}) in {t_feat:.3f} s "
+        f"= {n_rows / t_feat:.1f} nuclei/s")
+
+    # (c) heatmap of merged nuclei per tile, the default colour map, blurred
+    centres = np.asarray([polygon_of_feature(feat).mean(0) for feat in merged])
+    counts = np.asarray([((centres >= xy) & (centres < xy + TILE)).all(1).sum() for xy in coords])
+    scores = counts * 100.0 / max(counts.max(), 1)
+    t0 = time.perf_counter()
+    heat = vis_heatmap(slide, scores, coords, seg, blur=True)
+    t_heat = time.perf_counter() - t0
+    vis = slide.get_best_level_for_downsample(32)
+    w, h = slide.level_dimensions[vis]
+    if heat.dtype != np.uint8 or heat.shape != (h, w, 3):
+        raise AssertionError(f"heatmap {heat.dtype} {heat.shape}, want ({h}, {w}, 3)")
+    write_png(os.path.join(out_dir, "heatmap.png"), heat)
+    log(f"tools (c) heatmap: {heat.shape[1]}x{heat.shape[0]} RGB at level {vis} from "
+        f"{len(coords)} tile scores (max {counts.max()} nuclei a tile) in {t_heat:.3f} s")
+
+    # (d) deep features on the card: init_detector's defaults (host
+    # preprocess, tier block), every tile of the slide at B16
+    engine = init_detector(CONFIG, None, batch_size=BATCH)
+    if engine.device.type != device.type or engine.device_preprocess:
+        raise AssertionError("init_detector's defaults are not the strict path on the card")
+    tiles = [slide.read_region((int(x), int(y)), 0, (TILE, TILE)) for x, y in coords[:BATCH]]
+    embed_batch(engine, tiles)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    timing = dict.fromkeys(TIMING_KEYS, 0.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = [f for f, _ in iter_slide_features(engine, slide, coords, TILE, timing=timing)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts_embed = read_counts()
+    feats_gpu = np.concatenate(out)
+    forwards = -(-len(coords) // BATCH)
+    if feats_gpu.shape != (len(coords), 4 * FPN_C) or not np.isfinite(feats_gpu).all():
+        raise AssertionError(f"deep features {feats_gpu.shape}, finite "
+                             f"{np.isfinite(feats_gpu).all()}")
+    if (counts_embed["window_block"] != 12 * forwards or counts_embed["window_attention"]
+            or counts_embed["roi_align"] or counts_embed["component_stats"]):
+        raise AssertionError(f"deep features: launches over {forwards} forwards: {counts_embed}")
+    # the first two tiles on the CPU in f32, with the same random weights
+    cpu = init_detector(CONFIG, None, batch_size=2, device="cpu")
+    with torch.no_grad():
+        want = embed_batch(cpu, tiles[:2])
+    err = float(np.abs(feats_gpu[:2] - want).max())
+    scale = float(np.abs(want).max())
+    log(f"tools (d) deep features vs CPU f32 on 2 tiles: max abs err {err:.4f} "
+        f"(values up to {scale:.2f})")
+    if not np.isfinite(err) or err > 0.05 * max(1.0, scale):
+        raise AssertionError(f"deep features disagree with the CPU: {err} (scale {scale})")
+    split = ", ".join(f"{k[:-2]} {timing[k]:.3f} s" for k in TIMING_KEYS)
+    log(f"tools (d) deep features (strict preprocess, tier block): {len(coords)} tiles → "
+        f"{feats_gpu.shape} in {dt:.3f} s = {len(coords) / dt:.2f} tiles/s over {forwards} "
+        f"forwards; {split}; launches {counts_embed}")
+    # the same run once more under the profiler: the card's busy time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in iter_slide_features(engine, slide, coords, TILE):
+            pass
+        torch.cuda.synchronize()
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    log(f"tools (d) traced run: the card's kernels and copies {device_s:.3f} s, idle share of "
+        f"the untraced {dt:.3f} s run {1 - device_s / dt:.3f}")
+    t0 = time.perf_counter()
+    stained = np.concatenate([f for f, _ in iter_slide_features(engine, slide, coords, TILE,
+                                                                stain_norm=True)])
+    torch.cuda.synchronize()
+    if stained.shape != feats_gpu.shape or not np.isfinite(stained).all():
+        raise AssertionError(f"stain-normalized deep features {stained.shape}")
+    log(f"tools (d) deep features with stain normalization: {len(coords)} tiles in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return counts_embed
 
 
 def main() -> int:
@@ -686,15 +843,17 @@ def main() -> int:
     phase_reference(device)
     wsi = phase_slice(device)
     strict = phase_strict(device)
-    slide = phase_slide(device)
+    with tempfile.TemporaryDirectory() as out_dir:
+        slide, *slide_parts = phase_slide(device, out_dir)
+        embed = phase_tools(device, out_dir, *slide_parts)
+    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4
+        by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": f"nuhtc_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": wsi[name] + strict[name] + slide[name],
-                "launches_by_path": {"wsi": wsi[name], "strict": strict[name],
-                                     "slide": slide[name]},
-                **measured, "library_ms": None}
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **measured, "library_ms": None}
 
     pallas = "nuhtc_tpu/ops/window_attention_pallas.py"
     kernels_line = [

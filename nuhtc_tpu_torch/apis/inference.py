@@ -19,6 +19,7 @@ augmentation on top of an engine.
 
 from __future__ import annotations
 
+import re
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -189,15 +190,40 @@ class InferenceEngine:
         return bboxes, segms
 
 
-def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Loads a reference (mmdet-named) ``.pth`` state dict; the buffers the
-    reference also stores (relative_position_index, num_batches_tracked)
-    are rebuilt here, not loaded."""
+_MASK_HEAD_LIST = re.compile(r"^roi_head\.mask_head\.\d+\.")
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
+    """Loads a reference (mmdet-named) ``.pth`` state dict, as the JAX
+    package's ``convert_torch_state_dict`` maps one: the ModuleList form of
+    the lite mask head (``roi_head.mask_head.0.*``) loads into the one head
+    (a later index overwrites an earlier, as there); the buffers the
+    reference also stores (relative_position_index, num_batches_tracked) are
+    rebuilt here, not loaded; any other key the model lacks (SeesawLoss's
+    ``cum_samples``) is skipped, counted on stdout and returned. A key of the
+    model that the file lacks, or a shape that differs, raises."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("state_dict", ckpt)
-    sd = {k: v for k, v in sd.items()
-          if not k.endswith("relative_position_index") and "num_batches_tracked" not in k}
-    model.load_state_dict(sd, strict=True)
+    own = model.state_dict()
+    loaded, unmatched = {}, []
+    for k, v in ckpt.get("state_dict", ckpt).items():
+        if k.endswith("relative_position_index") or "num_batches_tracked" in k:
+            continue
+        key = _MASK_HEAD_LIST.sub("roi_head.mask_head.", k)
+        if key not in own:
+            unmatched.append(k)
+            continue
+        if tuple(v.shape) != tuple(own[key].shape):
+            raise ValueError(f"shape mismatch for {k}: the file has {tuple(v.shape)}, the "
+                             f"model {tuple(own[key].shape)}")
+        loaded[key] = v
+    missing = sorted(set(own) - set(loaded))
+    if missing:
+        raise RuntimeError(f"{path}: missing key(s) {missing[:8]}"
+                           f"{' ...' if len(missing) > 8 else ''} ({len(missing)} in all)")
+    model.load_state_dict(loaded, strict=True)
+    if unmatched:
+        print(f"[init_detector] {len(unmatched)} torch keys unmatched")
+    return unmatched
 
 
 def init_detector(config: str | Config, checkpoint: Optional[str] = None,

@@ -128,6 +128,11 @@ class NuHTC(nn.Module):
         }
 
     @torch.no_grad()
+    def extract_feats(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C) each."""
+        return tuple(self.neck(self.backbone(img)))
+
+    @torch.no_grad()
     def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         """img (B, H, W, 3) normalized → dict of padded detections: boxes
         (B, D, 4) in the original frame (input / scale_factor), scores (B, D),
@@ -137,7 +142,7 @@ class NuHTC(nn.Module):
         img_shape = (h, w)
         # contiguous once: the convolutions return permuted views, and every
         # cascade stage hands these maps to the RoIAlign kernel
-        feats = tuple(f.contiguous() for f in self.neck(self.backbone(img)))
+        feats = tuple(f.contiguous() for f in self.extract_feats(img))
 
         cls_scores, bbox_preds = self.rpn_head(feats)
         prop_boxes, _, prop_valid = rpn_proposals(

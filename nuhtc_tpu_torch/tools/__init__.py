@@ -1,1 +1,3 @@
-"""Measurement scripts of the port (run on a CUDA device)."""
+"""Command lines of the port (``infer_wsi``, ``nuclei_merge``,
+``wsi_feat_extract``, ``nuclei_feat_extract``, ``extract_features_nuhtc``)
+and its measurement scripts (run on a CUDA device)."""

@@ -18,42 +18,11 @@ contract (host preprocess, one full-frame mask per detection).
 from __future__ import annotations
 
 import argparse
-import csv
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Optional, Sequence
 
-
-def _parse_cell(text: str):
-    """A CSV cell as a number or a truth value where it reads as one; an
-    empty cell is None (a missing value)."""
-    text = text.strip()
-    if text == "":
-        return None
-    if text.lower() in ("true", "false"):
-        return text.lower() == "true"
-    for cast in (int, float):
-        try:
-            return cast(text)
-        except ValueError:
-            pass
-    return text
-
-
-def read_csv_rows(path: str) -> List[Dict[str, object]]:
-    with open(path, newline="") as f:
-        return [{k: _parse_cell(v or "") for k, v in row.items()} for row in csv.DictReader(f)]
-
-
-def write_csv_rows(path: str, rows: Sequence[Dict[str, object]]) -> None:
-    """Columns in order of first appearance; a key a row lacks is left empty."""
-    columns: List[str] = []
-    for row in rows:
-        columns += [k for k in row if k not in columns]
-    with open(path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=columns, lineterminator="\n")
-        writer.writeheader()
-        writer.writerows(rows)
+from nuhtc_tpu_torch.utils.tables import read_csv_rows, write_csv_rows
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

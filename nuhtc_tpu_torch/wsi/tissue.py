@@ -146,16 +146,18 @@ def grid_coords(
     return np.unique(np.asarray(coords, np.int64), axis=0)
 
 
-def _h5py():
+def require_h5py():
+    """h5py, imported here; ImportError by name where it is missing."""
     try:
         import h5py
     except ImportError as e:
-        raise ImportError("h5py is needed to read or write patch coordinate files (.h5)") from e
+        raise ImportError("h5py is needed to read or write .h5 files (patch coordinates, "
+                          "features)") from e
     return h5py
 
 
 def save_coords_h5(path: str, coords: np.ndarray, attrs: dict | None = None):
-    h5py = _h5py()
+    h5py = require_h5py()
 
     with h5py.File(path, "w") as f:
         d = f.create_dataset("coords", data=coords)
@@ -164,7 +166,7 @@ def save_coords_h5(path: str, coords: np.ndarray, attrs: dict | None = None):
 
 
 def load_coords_h5(path: str) -> Tuple[np.ndarray, dict]:
-    h5py = _h5py()
+    h5py = require_h5py()
 
     with h5py.File(path, "r") as f:
         coords = f["coords"][:]

@@ -101,7 +101,7 @@ def test_find_contours_first_contour_is_the_last_found():
     (rect_b,), _ = C.find_contours(big > 0)
     np.testing.assert_array_equal(rect_b, rect)
     with pytest.raises(ValueError):
-        C.find_contours(big, mode=cv2.RETR_EXTERNAL)
+        C.find_contours(big, mode=cv2.RETR_LIST)
     with pytest.raises(ValueError):
         C.find_contours(big, method=cv2.CHAIN_APPROX_TC89_L1)
 

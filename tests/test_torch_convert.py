@@ -95,6 +95,49 @@ def test_init_detector_loads_reference_pth(tmp_path):
         assert torch.equal(loaded[k], v), k
 
 
+def test_reference_pth_in_module_list_form_loads_as_jax_loads_it(converted, tmp_path, capsys):
+    """A real HTC .pth stores the lite mask head as ``roi_head.mask_head.0.*``
+    and SeesawLoss's ``cum_samples`` buffer: the port loads the first into
+    its one head and skips the second, counted, as the JAX loader does."""
+    from nuhtc_tpu_torch.apis.inference import load_reference_checkpoint
+
+    sd, params = converted
+    stored = {k.replace("roi_head.mask_head.", "roi_head.mask_head.0."): v for k, v in sd.items()}
+    assert sum(k.startswith("roi_head.mask_head.0.") for k in stored) > 4
+    stored["roi_head.bbox_head.0.loss_cls.cum_samples"] = torch.arange(6, dtype=torch.float32)
+    path = tmp_path / "htc.pth"
+    torch.save({"state_dict": stored}, path)
+    model = NuHTC(num_classes=5, fpn_channels=16, backbone_cfg=BACKBONE)
+    unmatched = load_reference_checkpoint(model, str(path))
+    assert unmatched == ["roi_head.bbox_head.0.loss_cls.cum_samples"]
+    assert "[init_detector] 1 torch keys unmatched" in capsys.readouterr().out
+    jax_params, info = convert_torch_state_dict({k: v.numpy() for k, v in stored.items()}, params)
+    assert info["unmatched_torch"] == unmatched
+    want, got = state_dict_from_jax(jax_params), model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("fault,match", [("missing", "missing key"), ("shape", "shape mismatch")])
+def test_reference_pth_without_a_port_key_or_of_another_shape_raises(converted, tmp_path,
+                                                                     fault, match):
+    from nuhtc_tpu_torch.apis.inference import load_reference_checkpoint
+
+    sd, _ = converted
+    stored = dict(sd)
+    key = "neck.fpn_convs.0.conv.weight"
+    if fault == "missing":
+        del stored[key]
+    else:
+        stored[key] = torch.zeros(1, *sd[key].shape[1:])
+    path = tmp_path / "bad.pth"
+    torch.save(stored, path)
+    with pytest.raises((RuntimeError, ValueError), match=match):
+        load_reference_checkpoint(NuHTC(num_classes=5, fpn_channels=16, backbone_cfg=BACKBONE),
+                                  str(path))
+
+
 def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import pkgutil, sys
@@ -112,12 +155,14 @@ def test_port_never_imports_jax():
         assert "nuhtc_tpu_torch.config.config" in new
         walked = ("wsi.slide", "wsi.tissue", "wsi.stitch", "wsi.export", "wsi.infer",
                   "ops.contours", "ops.imgproc", "utils.imageio", "tools.infer_wsi",
-                  "data.classes")
+                  "data.classes", "wsi.merge", "wsi.stain", "wsi.features", "wsi.heatmap",
+                  "tools.nuclei_merge", "tools.wsi_feat_extract", "tools.nuclei_feat_extract",
+                  "tools.extract_features_nuhtc", "utils.tables")
         missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
         assert not missing, missing
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu", "cv2", "pandas",
-                                            "skimage", "shapely", "h5py", "PIL"))
+                                            "skimage", "shapely", "h5py", "PIL", "matplotlib"))
         print("IMPORTED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -146,10 +191,11 @@ def test_port_sources_name_no_jax_package_import():
 
 def test_port_sources_name_no_opencv_or_pandas_import():
     """The port's host code stands without OpenCV, pandas, scikit-image and
-    shapely: no file of it, nor chip_smoke.py, names such an import. h5py and
-    PIL are named only inside the function that needs them (indented)."""
+    shapely: no file of it, nor chip_smoke.py, names such an import. h5py,
+    PIL and matplotlib are named only inside the function that needs them
+    (indented)."""
     pat = re.compile(r"^\s*(import|from)\s+(cv2|pandas|skimage|shapely)(\.|\s|$)", re.M)
-    lazy = re.compile(r"^(import|from)\s+(h5py|PIL)(\.|\s|$)", re.M)
+    lazy = re.compile(r"^(import|from)\s+(h5py|PIL|matplotlib)(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "nuhtc_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -159,6 +205,7 @@ def test_port_sources_name_no_opencv_or_pandas_import():
     assert not [f for f, text in sources.items() if lazy.search(text)]
     assert pat.search("import cv2") and pat.search("    from pandas import DataFrame")
     assert lazy.search("import h5py") and not lazy.search("        import h5py")
+    assert lazy.search("import matplotlib.pyplot as plt")
     assert not pat.search("# as cv2 does") and not pat.search("import cv2_free")
 
 
