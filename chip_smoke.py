@@ -73,14 +73,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      12 K1 launches a forward and none of K2-K4, the first two tiles within
      step 5's tolerance of the CPU in f32, tiles/s and its split (read,
      stain/resize, host preprocess, forward, pool); then once more with
-     stain normalization, its seconds printed.
+     stain normalization, its seconds printed;
+ 10. dataset evaluation and the patch tools (``phase_eval``) on the same
+     config: a synthetic PanNuke release of 64 tiles from seed 0 converted
+     by ``tools.preprocess_pannuke`` (annotations = instances of ≥ 2 px, all
+     five classes); the random weights of seed 0 with the objectness lifted,
+     saved as a reference-named ``.pth`` that every tool below loads;
+     ``tools.test.main`` on the card at B16 (strict path, tier block) with
+     ``save=True format=pannuke``, ``--show-dir`` and ``--work-dir``: every
+     image evaluated, the metrics json with the JAX package's keys (values
+     finite, in [0, 1]), a 6 × 6 confusion matrix, preds_pannuke.npy
+     (64, 256, 256, 6), one overlay per image, 12 K1, 4 K4 and ≥ 1 K3
+     launches a forward; img/s with its split (read, run_batch, encode,
+     evaluate), the metrics and the detections a tile printed, then
+     ``run_dataset`` once more under the profiler for the card's idle share;
+     the ground truth fed back as predictions scores PQ, AJI, Dice and mPQ
+     of 1 within 1e-5; ``tools.infer``, ``infer_patch``, ``image_demo`` and
+     ``feat_map`` (pooled dataset mode, maps with --vis) over 8 of the PNGs:
+     every file there and parsed, infer_patch's annotations = the
+     detections its thresholds keep, pooled vectors of 4 × 64 finite values,
+     K1's launches = 12 a forward.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
-by path: wsi, strict, slide, embed), error, times and bound (the least time the card could take: the larger of the bytes
+by path: wsi, strict, slide, embed, eval, patch), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
 """
@@ -802,6 +821,266 @@ def phase_tools(device, out_dir, slide, seg, coords):
     return counts_embed
 
 
+EVAL_TILES = 64  # the synthetic PanNuke release of phase 10
+PATCH_TILES = 8  # the PNGs the patch tools run over
+FEAT_SIDE = 2 * TILE // 4  # FPN level 0 of the 512² input
+
+
+def check_patch_counts(counts, det_forwards, feat_forwards):
+    """K1 12 times a forward of either kind; K4 4 times and K3 at least once
+    a detection forward; no K2."""
+    if (counts["window_block"] != 12 * (det_forwards + feat_forwards)
+            or counts["window_attention"] or counts["roi_align"] != 4 * det_forwards
+            or counts["component_stats"] < det_forwards):
+        raise AssertionError(f"patch tools: launches {counts} for {det_forwards} detection "
+                             f"and {feat_forwards} backbone forwards")
+
+
+def _captured(fn, argv):
+    """Runs a command line's ``main(argv)``, echoes what it printed, returns
+    that text; raises when it returns non-zero."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    text = buf.getvalue()
+    for line in text.replace("\r", "\n").splitlines():
+        if line.strip():
+            log(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"{fn.__module__}.main returned {rc}")
+    return text
+
+
+def phase_eval(device, tmp):
+    """Dataset evaluation and the patch tools on the PanNuke config at full
+    width: (a) a synthetic PanNuke release of EVAL_TILES tiles converted by
+    ``preprocess_pannuke``; (b) the config's random weights (seed 0, the
+    objectness lifted) saved as a reference-named ``.pth``, which every tool
+    loads; (c) ``tools.test.main`` on the card (B16, tier block, strict path):
+    metrics json, confusion matrix, ``preds_pannuke.npy``, one overlay per
+    image, launches per forward, img/s and its split, then a traced second
+    run of ``run_dataset`` for the card's busy time; (d) the ground truth fed
+    back as predictions through ``evaluate_dataset``: PQ, AJI, Dice and mPQ
+    equal 1; (e) ``infer``, ``infer_patch``, ``image_demo`` and ``feat_map``
+    (pooled dataset mode, maps with --vis) over PATCH_TILES of the PNGs.
+    Returns the launches of (c) and of (e)."""
+    import torch
+    from nuhtc_tpu_torch.apis.inference import InferenceEngine, init_detector
+    from nuhtc_tpu_torch.data.coco import build_dataset
+    from nuhtc_tpu_torch.eval.evaluate import evaluate_dataset, mask_nms
+    from nuhtc_tpu_torch.ops import rle
+    from nuhtc_tpu_torch.tools import feat_map, image_demo, infer, infer_patch, preprocess_pannuke
+    from nuhtc_tpu_torch.tools import test as test_tool
+    from nuhtc_tpu_torch.tools.synthetic import lift_objectness, synthetic_pannuke
+    from nuhtc_tpu_torch.utils.imageio import read_image
+
+    # (a) the release and its conversion
+    t0 = time.perf_counter()
+    images, masks, types = synthetic_pannuke(np.random.RandomState(0), EVAL_TILES, TILE)
+    release = {}
+    for name, arr in (("images", images), ("masks", masks), ("types", types)):
+        release[name] = os.path.join(tmp, f"{name}.npy")
+        np.save(release[name], arr)
+    _captured(preprocess_pannuke.main, [
+        "--images", release["images"], "--masks", release["masks"], "--types", release["types"],
+        "--fold", "3", "--out-dir", os.path.join(tmp, "datasets"),
+        "--coco-dir", os.path.join(tmp, "coco")])
+    ann_file = os.path.join(tmp, "coco", "PanNuke_annt_RLE_fold3.json")
+    with open(ann_file) as f:
+        doc = json.load(f)
+    instances = sum(int((np.bincount(masks[i, :, :, c].astype(np.int64).ravel())[1:] >= 2).sum())
+                    for i in range(EVAL_TILES) for c in range(5))
+    cats = {a["category_id"] for a in doc["annotations"]}
+    if len(doc["images"]) != EVAL_TILES or len(doc["annotations"]) != instances or cats != set(
+            range(1, 6)):
+        raise AssertionError(f"preprocess_pannuke: {len(doc['images'])} images, "
+                             f"{len(doc['annotations'])} annotations for {instances} instances, "
+                             f"classes {sorted(cats)}")
+    rgb = os.path.join(tmp, "datasets", "rgb")
+    data = [f"data.test.ann_file={ann_file}", f"data.test.img_prefix={rgb}",
+            f"data.test.seg_prefix={os.path.join(tmp, 'datasets', 'rgb_seg')}"]
+    log(f"eval (a) data: {EVAL_TILES} synthetic PanNuke tiles, {instances} nuclei "
+        f"({instances / EVAL_TILES:.1f} a tile, 5 classes) converted in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # (b) random weights from seed 0, as a reference-named checkpoint
+    cpu = init_detector(CONFIG, None, batch_size=1, device="cpu")
+    lift_objectness(cpu.model)
+    ckpt = os.path.join(tmp, "pannuke_random_seed0.pth")
+    torch.save({"state_dict": cpu.model.state_dict()}, ckpt)
+    del cpu
+
+    # (c) tools.test on the card
+    show, work = os.path.join(tmp, "show"), os.path.join(tmp, "work")
+    forwards = -(-EVAL_TILES // BATCH)
+    reset_counts()
+    text = _captured(test_tool.main, [
+        CONFIG, ckpt, "--eval", "segm", "--eval-options", "save=True", "format=pannuke",
+        "--show-dir", show, "--work-dir", work, "--batch-size", str(BATCH), "--cfg-options", *data])
+    torch.cuda.synchronize()
+    counts_eval = read_counts()
+    check_counts("eval", counts_eval, forwards, "window_block")
+    summary = json.loads([ln for ln in text.splitlines() if ln.startswith("test: ")][-1][6:])
+    with open(os.path.join(work, "eval_metrics.json")) as f:
+        metrics = json.load(f)
+    stat_keys = ["aji", "aji_plus", "dq", "sq", "pq", "dice", "precision", "recall"]
+    want_keys = (stat_keys + [f"multi_pq+_{c}" for c in range(5)] + ["multi_pq+"]
+                 + [f"multi_pq_{c}" for c in range(5)] + ["multi_pq", "confusion_matrix"])
+    cm = np.asarray(metrics.get("confusion_matrix"), float)
+    scalars = np.asarray([metrics[k] for k in want_keys[:-1] if k in metrics], float)
+    if (list(metrics) != want_keys or cm.shape != (6, 6) or not np.isfinite(cm).all()
+            or not np.isfinite(scalars).all() or scalars.min() < 0 or scalars.max() > 1):
+        raise AssertionError(f"eval: metrics {list(metrics)} {scalars} confusion {cm.shape}")
+    out_dir = os.path.join(show, "PanNukeCocoDataset")
+    preds = np.load(os.path.join(out_dir, "preds_pannuke.npy"), mmap_mode="r")
+    overlays = os.listdir(os.path.join(out_dir, "overlay"))
+    if (summary["images"] != EVAL_TILES or preds.shape != (EVAL_TILES, TILE, TILE, 6)
+            or len(overlays) != EVAL_TILES):
+        raise AssertionError(f"eval: {summary['images']} images evaluated, preds "
+                             f"{preds.shape}, {len(overlays)} overlays")
+    log(f"eval (c) tools.test on {device} (strict path, tier block, B{BATCH}): "
+        f"{EVAL_TILES} tiles, {summary['detections'] / EVAL_TILES:.1f} detections a tile, "
+        f"{summary['img_per_s']:.2f} img/s over {summary['seconds']:.3f} s: read "
+        f"{summary['read_s']:.3f} s, run_batch {summary['run_batch_s']:.3f} s, encode "
+        f"{summary['encode_s']:.3f} s, evaluate {summary['evaluate_s']:.3f} s; "
+        f"pq {metrics['pq']:.4f} aji {metrics['aji']:.4f} dice {metrics['dice']:.4f} "
+        f"multi_pq {metrics['multi_pq']:.4f} multi_pq+ {metrics['multi_pq+']:.4f}; "
+        f"launches {counts_eval}")
+
+    # the inference loop once more under the profiler: the card's busy time
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = init_detector(CONFIG, ckpt, batch_size=BATCH)
+    dataset = build_dataset(dict(
+        type="PanNukeCocoDataset", ann_file=ann_file, img_prefix=rgb, test_mode=True))
+    test_tool.run_dataset(engine, dataset, BATCH, limit=BATCH)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        test_tool.run_dataset(engine, dataset, BATCH)
+        torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    loop_s = summary["read_s"] + summary["run_batch_s"] + summary["encode_s"]
+    log(f"eval (c) traced run_dataset ({traced:.3f} s under the profiler): the card's kernels "
+        f"and copies {device_s:.3f} s; idle share of the untraced inference loop "
+        f"({loop_s:.3f} s) {1 - device_s / loop_s:.3f}, of the whole evaluation "
+        f"({summary['seconds']:.3f} s) {1 - device_s / summary['seconds']:.3f}")
+    del engine
+
+    # (d) the ground truth as predictions, score 1: the metrics are 1
+    gt_results = []
+    for i in range(len(dataset)):
+        ann = dataset.get_ann_info(i)
+        boxes = np.concatenate([ann["bboxes"], np.ones((len(ann["bboxes"]), 1), np.float32)], 1)
+        gt_results.append(([boxes[ann["labels"] == c] for c in range(5)],
+                           [[m for m, l in zip(ann["masks"], ann["labels"]) if l == c]
+                            for c in range(5)]))
+    wired = evaluate_dataset(dataset, gt_results)
+    off = {k: abs(wired[k] - 1.0) for k in ("pq", "aji", "dice", "multi_pq")}
+    if max(off.values()) > 1e-5:
+        raise AssertionError(f"eval (d): ground truth as predictions scores {wired}")
+    log(f"eval (d) ground truth as predictions: " + ", ".join(
+        f"{k} {wired[k]:.7f}" for k in off))
+
+    # (e) the patch tools over PATCH_TILES of the PNGs, on the same checkpoint
+    names = sorted(os.listdir(rgb), key=lambda n: int(n.split("_")[1].split(".")[0]))
+    patch_dir = os.path.join(tmp, "patch_imgs")
+    os.makedirs(patch_dir)
+    for name in names[:PATCH_TILES]:
+        os.symlink(os.path.join(rgb, name), os.path.join(patch_dir, name))
+    sub = dict(doc, images=doc["images"][:PATCH_TILES], annotations=[
+        a for a in doc["annotations"] if a["image_id"] < PATCH_TILES])
+    sub_file = os.path.join(tmp, "coco", "subset.json")
+    with open(sub_file, "w") as f:
+        json.dump(sub, f)
+    with open(os.path.join(tmp, "list.csv"), "w") as f:
+        f.write("image_path\n" + "".join(f"{n}\n" for n in names[:PATCH_TILES]))
+    raw = []
+    plain_run = InferenceEngine.run_batch
+
+    def recording_run(self, imgs):
+        res = plain_run(self, imgs)
+        raw.extend(res)
+        return res
+
+    out = {k: os.path.join(tmp, k) for k in ("infer", "demo", "feat_ds", "feat_maps")}
+    patch_json = os.path.join(tmp, "infer_patch.json")
+    t0 = time.perf_counter()
+    reset_counts()
+    _captured(infer.main, [patch_dir, CONFIG, ckpt, "--out", out["infer"], "--batch-size",
+                           str(PATCH_TILES), "--save-json"])
+    InferenceEngine.run_batch = recording_run
+    try:
+        _captured(infer_patch.main, [os.path.join(tmp, "list.csv"), CONFIG, ckpt, "--img-root",
+                                     rgb, "--out", patch_json, "--vis-dir",
+                                     os.path.join(tmp, "patch_vis")])
+    finally:
+        InferenceEngine.run_batch = plain_run
+    _captured(image_demo.main, [os.path.join(patch_dir, "*.png"), CONFIG, ckpt,
+                                "--output", out["demo"]])
+    _captured(feat_map.main, ["--config", CONFIG, "--checkpoint", ckpt, "--out", out["feat_ds"],
+                              "--batch-size", str(PATCH_TILES), "--cfg-options",
+                              f"data.test.ann_file={sub_file}", f"data.test.img_prefix={rgb}"])
+    _captured(feat_map.main, [patch_dir, CONFIG, ckpt, "--out", out["feat_maps"], "--vis"])
+    torch.cuda.synchronize()
+    counts_patch = read_counts()
+    t_patch = time.perf_counter() - t0
+    # detection forwards: infer 1, infer_patch 1, image_demo 1 a tile; backbone
+    # only: feat_map's dataset mode 1, its maps mode 1 a tile
+    det_forwards, feat_forwards = 2 + PATCH_TILES, 1 + PATCH_TILES
+    check_patch_counts(counts_patch, det_forwards, feat_forwards)
+    stems = [n[:-4] for n in names[:PATCH_TILES]]
+    want_files = {
+        "infer": {f"{s}{e}" for s in stems for e in ("_overlay.png", ".json")},
+        "demo": {f"{s}{e}" for s in stems for e in ("_demo.png", ".json")},
+        "feat_ds": {f"{s}.npy" for s in stems},
+        "feat_maps": {f"{s}{e}" for s in stems
+                      for e in ["_fpn.npz"] + [f"_level{i}.png" for i in range(4)]},
+    }
+    for key, want in want_files.items():
+        if set(os.listdir(out[key])) != want:
+            raise AssertionError(f"{key}: files {sorted(os.listdir(out[key]))[:6]}...")
+    for s in stems:
+        with open(os.path.join(out["infer"], s + ".json")) as f:
+            dets = json.load(f)
+        with open(os.path.join(out["demo"], s + ".json")) as f:
+            demo = json.load(f)
+        if any(rle.decode(d["segmentation"]).shape != (TILE, TILE) or len(d["prob"]) != 5
+               for d in dets) or len(demo["boxes"]) != len(demo["scores"]):
+            raise AssertionError(f"infer/image_demo: bad json for {s}")
+        for p in (f"{s}_overlay.png", f"{s}_demo.png"):
+            if read_image(os.path.join(out["infer" if "overlay" in p else "demo"], p)).shape != (
+                    TILE, TILE, 3):
+                raise AssertionError(f"bad overlay {p}")
+        vec = np.load(os.path.join(out["feat_ds"], s + ".npy"))
+        maps = np.load(os.path.join(out["feat_maps"], s + "_fpn.npz"))
+        if vec.shape != (4 * FPN_C,) or not np.isfinite(vec).all() or sorted(maps) != [
+                f"level{i}" for i in range(4)] or maps["level0"].shape != (FEAT_SIDE, FEAT_SIDE, FPN_C):
+            raise AssertionError(f"feat_map: vector {vec.shape}, maps {sorted(maps)}")
+    # infer_patch: the annotations are the detections its thresholds keep
+    with open(patch_json) as f:
+        coco_out = json.load(f)
+    kept = 0
+    for res in raw:
+        sel = res["scores"] >= 0.35
+        rles = [rle.encode(m) for m in res["masks"][sel]]
+        kept += len(mask_nms(rles, res["scores"][sel], thr=0.05)[1]) if rles else 0
+    if len(raw) != PATCH_TILES or len(coco_out["images"]) != PATCH_TILES or len(
+            coco_out["annotations"]) != kept:
+        raise AssertionError(f"infer_patch: {len(coco_out['annotations'])} annotations, its "
+                             f"thresholds keep {kept} of {len(raw)} images' detections")
+    log(f"eval (e) patch tools over {PATCH_TILES} tiles (infer, infer_patch: "
+        f"{kept} nuclei kept, image_demo, feat_map dataset + maps --vis) in {t_patch:.3f} s; "
+        f"{det_forwards} detection and {feat_forwards} backbone forwards; "
+        f"launches {counts_patch}")
+    return counts_eval, counts_patch
+
+
 def main() -> int:
     try:
         import torch
@@ -846,7 +1125,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         slide, *slide_parts = phase_slide(device, out_dir)
         embed = phase_tools(device, out_dir, *slide_parts)
-    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed)
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluation, patch = phase_eval(device, tmp)
+    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

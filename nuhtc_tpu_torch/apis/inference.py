@@ -226,6 +226,18 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
     return unmatched
 
 
+def resolve_device(device: Optional[str | torch.device] = None,
+                   caller: str = "init_detector") -> torch.device:
+    """``device``, or the first CUDA device when it is None; raises when
+    there is none. The CPU is taken only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{caller}: no CUDA device; pass device=\"cpu\" (--device cpu) "
+                               "to run on the CPU")
+        device = "cuda:0"
+    return torch.device(device)
+
+
 def init_detector(config: str | Config, checkpoint: Optional[str] = None,
                   batch_size: int = 8, dtype: Optional[torch.dtype] = None,
                   device: Optional[str | torch.device] = None,
@@ -240,12 +252,7 @@ def init_detector(config: str | Config, checkpoint: Optional[str] = None,
     frame. ``swin_kernel``: the Swin block's kernel tier on CUDA, "block"
     (K1), "attn" (K2) or "none"."""
     cfg = Config.fromfile(config) if isinstance(config, str) else config
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("init_detector: no CUDA device; pass device=\"cpu\" to run "
-                               "on the CPU")
-        device = "cuda:0"
-    device = torch.device(device)
+    device = resolve_device(device, "init_detector")
     dtype = dtype or (torch.bfloat16 if device.type == "cuda" else torch.float32)
     # f32 products stay f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -15,8 +15,8 @@ result ``cv2`` (5.0.0) gives, point for point:
   the start point is kept only when the first step differs from the way the
   border returns to it;
 - ``contour_area`` (Green's formula), ``bounding_rect``,
-  ``point_polygon_test`` (the sign-only integer form) and ``draw_contours``
-  (thin outlines, or filled with an offset);
+  ``point_polygon_test`` (the sign-only integer form), ``draw_contours``
+  (thin outlines, or filled with an offset) and ``rectangle``;
 - for the offline slide tools: ``fill_poly`` (OpenCV's edge-list scan
   conversion in 16.16 fixed point, with its clipping), ``convex_hull`` and
   ``fill_convex_poly``, ``arc_length``, contour and image moments, Hu
@@ -390,6 +390,9 @@ def fill_poly(img: np.ndarray, polys: Sequence[np.ndarray], color, offset=(0, 0)
     return img
 
 
+_THICK_CHUNK = 1 << 20  # candidate pixels of a thick outline drawn in one pass
+
+
 def draw_contours(img: np.ndarray, contours: Sequence[np.ndarray], color, thickness: int = 1,
                   offset=(0, 0)) -> np.ndarray:
     """Draws every contour, moved by ``offset``, as a closed polyline into
@@ -412,35 +415,64 @@ def draw_contours(img: np.ndarray, contours: Sequence[np.ndarray], color, thickn
         return fill_poly(img, contours, color, offset)
     h, w = img.shape[:2]
     color = np.asarray(color, img.dtype)
-    for cont in contours:
-        p = np.asarray(cont).reshape(-1, 2).astype(np.int64) + np.asarray(offset, np.int64)
-        if len(p) == 0:
-            continue
-        q = np.roll(p, -1, axis=0)
-        if thickness <= 1:
-            for (x0, y0), (x1, y1) in zip(p.tolist(), q.tolist()):
+    rings = [np.asarray(c).reshape(-1, 2).astype(np.int64) + np.asarray(offset, np.int64)
+             for c in contours]
+    rings = [p for p in rings if len(p)]
+    if thickness <= 1:
+        for p in rings:
+            for (x0, y0), (x1, y1) in zip(p.tolist(), np.roll(p, -1, axis=0).tolist()):
                 _draw_line(img, x0, y0, x1, y1, color)
-            continue
-        r = (thickness + 1) // 2
-        pad = r + 2
-        for (x0, y0), (x1, y1) in zip(p.tolist(), q.tolist()):
-            xa, xb = max(min(x0, x1) - pad, 0), min(max(x0, x1) + pad + 1, w)
-            ya, yb = max(min(y0, y1) - pad, 0), min(max(y0, y1) + pad + 1, h)
-            if xa >= xb or ya >= yb:
-                continue
-            yy, xx = np.mgrid[ya:yb, xa:xb]
-            cover = ((xx - x0) ** 2 + (yy - y0) ** 2 <= r * r) | (
-                (xx - x1) ** 2 + (yy - y1) ** 2 <= r * r)
-            dx, dy = x1 - x0, y1 - y0
-            if dx or dy:
-                length = float(np.hypot(dx, dy))
-                along = ((xx - x0) * dx + (yy - y0) * dy) / length
-                across = np.abs((xx - x0) * dy - (yy - y0) * dx) / length
-                # a slanted edge of the filled rectangle takes in the pixels it touches
-                reach = r + min(abs(dx), abs(dy)) / length
-                cover |= (along >= 0) & (along <= length) & (across <= reach)
-            img[ya:yb, xa:xb][cover] = color
+        return img
+    if not rings:
+        return img
+    # every segment of every ring at once: its padded box, clipped to the image
+    r = (thickness + 1) // 2
+    pad = r + 2
+    p = np.concatenate(rings)
+    q = np.concatenate([np.roll(ring, -1, axis=0) for ring in rings])
+    x0, y0, x1, y1 = p[:, 0], p[:, 1], q[:, 0], q[:, 1]
+    xa = np.maximum(np.minimum(x0, x1) - pad, 0)
+    ya = np.maximum(np.minimum(y0, y1) - pad, 0)
+    nw = np.minimum(np.maximum(x0, x1) + pad + 1, w) - xa
+    nh = np.minimum(np.maximum(y0, y1) + pad + 1, h) - ya
+    live = (nw > 0) & (nh > 0)
+    x0, y0, x1, y1, xa, ya, nw = (a[live] for a in (x0, y0, x1, y1, xa, ya, nw))
+    dx, dy = x1 - x0, y1 - y0
+    length = np.hypot(dx, dy)
+    seg = length > 0
+    length = np.where(seg, length, 1.0)
+    # a slanted edge of the filled rectangle takes in the pixels it touches
+    reach = r + np.minimum(np.abs(dx), np.abs(dy)) / length
+    size = nw * nh[live]
+    ends = np.cumsum(size)
+    start = 0
+    while start < len(size):  # a bounded number of candidate pixels a pass
+        stop = max(int(np.searchsorted(ends, ends[start] - size[start] + _THICK_CHUNK,
+                                       "right")), start + 1)
+        n = size[start:stop]
+        s = np.repeat(np.arange(start, stop), n)
+        local = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        xx, yy = xa[s] + local % nw[s], ya[s] + local // nw[s]
+        ux, uy, vx, vy = xx - x0[s], yy - y0[s], xx - x1[s], yy - y1[s]
+        cover = (ux ** 2 + uy ** 2 <= r * r) | (vx ** 2 + vy ** 2 <= r * r)
+        along = (ux * dx[s] + uy * dy[s]) / length[s]
+        across = np.abs(ux * dy[s] - uy * dx[s]) / length[s]
+        cover |= seg[s] & (along >= 0) & (along <= length[s]) & (across <= reach[s])
+        img[yy[cover], xx[cover]] = color
+        start = stop
     return img
+
+
+def rectangle(img: np.ndarray, pt1: Sequence[int], pt2: Sequence[int], color,
+              thickness: int = 1) -> np.ndarray:
+    """``cv2.rectangle(img, pt1, pt2, color, thickness)``, in place (and
+    returned): OpenCV draws the closed polyline pt1 → (x2, y1) → pt2 → (x1, y2),
+    which is ``draw_contours`` of that ring; at thickness 1 pixel for pixel
+    (each side clipped as ``cv2.line`` clips it), filled at a negative
+    thickness, and a thicker outline held as ``draw_contours`` holds one."""
+    (x1, y1), (x2, y2) = (int(v) for v in pt1), (int(v) for v in pt2)
+    ring = np.array([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.int64)
+    return draw_contours(img, [ring], color, thickness)
 
 
 def convex_hull(points: np.ndarray) -> np.ndarray:

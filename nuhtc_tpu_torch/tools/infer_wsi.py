@@ -72,9 +72,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     "without one); 'cpu' for the CPU")
     args = ap.parse_args(argv)
 
-    import torch
-
-    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.apis.inference import init_detector, resolve_device
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.data.classes import dataset_classes
     from nuhtc_tpu_torch.utils.imageio import write_jpg, write_png
@@ -84,9 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from nuhtc_tpu_torch.wsi.tissue import (
         grid_coords, load_coords_h5, save_coords_h5, segment_tissue)
 
-    if args.device is None and not torch.cuda.is_available():
-        raise RuntimeError("infer_wsi: no CUDA device; pass --device cpu to run on the CPU")
-    device = torch.device(args.device or "cuda:0")
+    device = resolve_device(args.device, "infer_wsi")
 
     for sub in ("patches", "masks", "stitches", "nuclei"):
         os.makedirs(os.path.join(args.save_dir, sub), exist_ok=True)

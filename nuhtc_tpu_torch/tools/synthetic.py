@@ -2,7 +2,8 @@
 the stage profile): blob tiles from a seed, and a lift of the objectness
 logit so that random weights yield detections; and the kernels' inputs at
 the main path's shapes (boxes and maps for K4, a blob mask for K3); and a
-whole slide: tissue regions of that blob texture on a near-white ground."""
+whole slide: tissue regions of that blob texture on a near-white ground;
+and a patch dataset in the layout of the PanNuke release."""
 
 from __future__ import annotations
 
@@ -136,3 +137,53 @@ def blob_mask(rng, b, size, n_blobs):
             r = rng.randint(3, 12)
             mask[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
     return mask
+
+
+PANNUKE_TINTS = ((96, 70, 160), (120, 60, 140), (80, 90, 150), (60, 60, 90), (110, 80, 170))
+
+
+def synthetic_pannuke(rng: np.random.RandomState, n: int, size: int = 256,
+                      nuclei: tuple = (30, 60)):
+    """A PanNuke release of ``n`` tiles made from ``rng``: images (n, size,
+    size, 3) float64 in [0, 255], masks (n, size, size, 6) float64 (one
+    instance map per class, ids from 1; channel 5 is 1 on the background)
+    and types (n,) tissue names, as the release's images.npy, masks.npy and
+    types.npy hold them. Each tile: a pink textured ground and ``nuclei``
+    (low, high) elliptical nuclei that do not overlap, each filled with its
+    class's dark tint; the first five nuclei take the five classes in turn,
+    the rest are drawn with PanNuke's imbalance (neoplastic most, dead
+    fewest), so every class is present in a tile unless a nucleus of the
+    first five is dropped (under 12 pixels left free)."""
+    tissues = ("Breast", "Colon", "Lung", "Kidney", "Prostate")
+    class_p = np.asarray([0.45, 0.2, 0.2, 0.05, 0.1])
+    images = np.zeros((n, size, size, 3), np.float64)
+    masks = np.zeros((n, size, size, 6), np.float64)
+    types = np.asarray([tissues[rng.randint(len(tissues))] for _ in range(n)])
+    cells = -(-size // 8)
+    for i in range(n):
+        noise = np.kron(rng.randn(cells, cells, 3) * 10, np.ones((8, 8, 1)))[:size, :size]
+        img = np.asarray([232.0, 201.0, 212.0]) + noise
+        occupied = np.zeros((size, size), bool)
+        ids = np.zeros(5, np.int64)
+        for k in range(rng.randint(*nuclei)):
+            c = k if k < 5 else int(rng.choice(5, p=class_p))
+            cy, cx = rng.uniform(10, size - 10, 2)
+            a = rng.uniform(4.0, 10.0)
+            b = a * rng.uniform(0.6, 1.0)
+            ang = rng.uniform(0, np.pi)
+            y0, y1 = max(int(cy - a) - 1, 0), min(int(cy + a) + 2, size)
+            x0, x1 = max(int(cx - a) - 1, 0), min(int(cx + a) + 2, size)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
+            v = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
+            m = ((u / a) ** 2 + (v / b) ** 2 <= 1.0) & ~occupied[y0:y1, x0:x1]
+            if m.sum() < 12:
+                continue
+            occupied[y0:y1, x0:x1] |= m
+            ids[c] += 1
+            masks[i, y0:y1, x0:x1, c][m] = ids[c]
+            tint = np.asarray(PANNUKE_TINTS[c], np.float64) + rng.randn(3) * 8
+            img[y0:y1, x0:x1][m] = tint + rng.randn(int(m.sum()), 3) * 6
+        masks[i, :, :, 5] = ~occupied
+        images[i] = np.clip(np.round(img), 0, 255)
+    return images, masks, types

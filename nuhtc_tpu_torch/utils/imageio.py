@@ -135,6 +135,47 @@ def read_image(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
+def png_rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
+    """RGB uint8 (H, W, 3) → grey as libpng converts it when OpenCV reads a
+    colour PNG as grey (``png_set_rgb_to_gray(png, 1, 0.299, 0.587)``): 15-bit
+    coefficients 9797, 19234 and 3737, truncated, and a pixel whose three
+    channels are equal kept as it is. This is not ``cv2.cvtColor``'s
+    RGB2GRAY (``ops.imgproc.rgb_to_gray_u8``), which rounds: the two differ
+    by one level on about half of all pixels."""
+    s = img.astype(np.int32)
+    r, g, b = s[..., 0], s[..., 1], s[..., 2]
+    grey = (r == g) & (r == b)
+    return np.where(grey, r, (9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """Any raster image as grey uint8 (H, W), as ``cv2.imread(path,
+    cv2.IMREAD_GRAYSCALE)`` reads a PNG: grey as stored, colour (alpha
+    dropped, a palette expanded) through ``png_rgb_to_gray_u8``."""
+    with open(path, "rb") as f:
+        head = _png_header(f.read(33))
+    if head is not None and head[2] == 8 and head[3] in _PNG_SAMPLES and not head[4]:
+        img = read_png(path)
+        return img if img.ndim == 2 else png_rgb_to_gray_u8(img)
+    with _pillow().open(path) as im:
+        if im.mode == "L":
+            return np.asarray(im)
+        return png_rgb_to_gray_u8(np.asarray(im.convert("RGB")))
+
+
 def write_jpg(path: str, img: np.ndarray, quality: int = 95) -> None:
     """Writes a uint8 RGB (or grey) image as a JPEG, through Pillow."""
     _pillow().fromarray(np.ascontiguousarray(img)).save(path, format="JPEG", quality=quality)
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Writes a uint8 grey or RGB image in the format its extension names, as
+    ``cv2.imwrite`` chooses one: ``.png`` by ``write_png``, ``.jpg``/``.jpeg``
+    by ``write_jpg``, any other through Pillow."""
+    ext = path.lower().rsplit(".", 1)[-1]
+    if ext == "png":
+        write_png(path, img)
+    elif ext in ("jpg", "jpeg"):
+        write_jpg(path, img)
+    else:
+        _pillow().fromarray(np.ascontiguousarray(img)).save(path)

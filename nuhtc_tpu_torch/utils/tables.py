@@ -28,9 +28,15 @@ def parse_cell(text: str):
     return text
 
 
-def read_csv_rows(path: str) -> List[Dict[str, object]]:
+def read_csv_rows(path: str, parse: bool = True) -> List[Dict[str, object]]:
+    """The rows of a CSV file with a header, each a dict by column. With
+    ``parse`` each cell goes through ``parse_cell``; without, every cell
+    stays the text it is (a file name such as ``0001.png`` or ``0001`` must)."""
     with open(path, newline="") as f:
-        return [{k: parse_cell(v or "") for k, v in row.items()} for row in csv.DictReader(f)]
+        rows = list(csv.DictReader(f))
+    if not parse:
+        return [{k: v or "" for k, v in row.items()} for row in rows]
+    return [{k: parse_cell(v or "") for k, v in row.items()} for row in rows]
 
 
 def columns_of(rows: Sequence[Dict[str, object]]) -> List[str]:

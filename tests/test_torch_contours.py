@@ -189,6 +189,21 @@ def test_draw_contours_thick_lines_overlap_cv2(thickness, floor):
         assert (a & b).sum() / max((a | b).sum(), 1) >= floor
 
 
+@pytest.mark.parametrize("thickness", [2, 5, 16])
+def test_draw_contours_thick_lines_same_in_any_number_of_passes(monkeypatch, thickness):
+    """A thick outline is drawn in passes of at most ``_THICK_CHUNK`` candidate
+    pixels; passes of a few hundred give the pixels of one pass, for rings
+    that cross the border and rings of one point."""
+    rng = np.random.RandomState(thickness)
+    conts = [rng.randint(-30, 130, (n, 1, 2)).astype(np.int32) for n in (1, 2, 9, 25)]
+    one = np.zeros((100, 110, 3), np.uint8)
+    C.draw_contours(one, conts, (0, 255, 0), thickness, offset=(3, -2))
+    monkeypatch.setattr(C, "_THICK_CHUNK", 300)
+    many = np.zeros_like(one)
+    C.draw_contours(many, conts, (0, 255, 0), thickness, offset=(3, -2))
+    assert one.any() and np.array_equal(one, many)
+
+
 def test_saturation_equals_cv2():
     rng = np.random.RandomState(0)
     g = np.arange(0, 256, 5, dtype=np.uint8)

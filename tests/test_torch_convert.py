@@ -157,12 +157,16 @@ def test_port_never_imports_jax():
                   "ops.contours", "ops.imgproc", "utils.imageio", "tools.infer_wsi",
                   "data.classes", "wsi.merge", "wsi.stain", "wsi.features", "wsi.heatmap",
                   "tools.nuclei_merge", "tools.wsi_feat_extract", "tools.nuclei_feat_extract",
-                  "tools.extract_features_nuhtc", "utils.tables")
+                  "tools.extract_features_nuhtc", "utils.tables", "registry", "data.coco",
+                  "data.loader", "eval.stats", "eval.evaluate", "eval.coco_map", "eval.nucls",
+                  "eval.interrater", "utils.visualize", "tools.test", "tools.preprocess_pannuke",
+                  "tools.infer", "tools.infer_patch", "tools.image_demo", "tools.feat_map")
         missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
         assert not missing, missing
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu", "cv2", "pandas",
-                                            "skimage", "shapely", "h5py", "PIL", "matplotlib"))
+                                            "skimage", "shapely", "h5py", "PIL", "matplotlib",
+                                            "sklearn", "pycocotools"))
         print("IMPORTED", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -190,11 +194,12 @@ def test_port_sources_name_no_jax_package_import():
 
 
 def test_port_sources_name_no_opencv_or_pandas_import():
-    """The port's host code stands without OpenCV, pandas, scikit-image and
-    shapely: no file of it, nor chip_smoke.py, names such an import. h5py,
-    PIL and matplotlib are named only inside the function that needs them
-    (indented)."""
-    pat = re.compile(r"^\s*(import|from)\s+(cv2|pandas|skimage|shapely)(\.|\s|$)", re.M)
+    """The port's host code stands without OpenCV, pandas, scikit-image,
+    shapely, scikit-learn and pycocotools: no file of it, nor chip_smoke.py,
+    names such an import. h5py, PIL and matplotlib are named only inside the
+    function that needs them (indented)."""
+    pat = re.compile(r"^\s*(import|from)\s+(cv2|pandas|skimage|shapely|sklearn|pycocotools)"
+                     r"(\.|\s|$)", re.M)
     lazy = re.compile(r"^(import|from)\s+(h5py|PIL|matplotlib)(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "nuhtc_tpu_torch")):
@@ -207,6 +212,8 @@ def test_port_sources_name_no_opencv_or_pandas_import():
     assert lazy.search("import h5py") and not lazy.search("        import h5py")
     assert lazy.search("import matplotlib.pyplot as plt")
     assert not pat.search("# as cv2 does") and not pat.search("import cv2_free")
+    assert pat.search("from sklearn.metrics import roc_auc_score")
+    assert pat.search("    from pycocotools.cocoeval import COCOeval")
 
 
 def test_init_detector_takes_the_cpu_only_when_asked(monkeypatch):
