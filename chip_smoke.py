@@ -92,14 +92,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      ``feat_map`` (pooled dataset mode, maps with --vis) over 8 of the PNGs:
      every file there and parsed, infer_patch's annotations = the
      detections its thresholds keep, pooled vectors of 4 × 64 finite values,
-     K1's launches = 12 a forward.
+     K1's launches = 12 a forward;
+ 11. the corruption-robustness run and the host-only analysis tools
+     (``phase_robustness``) on phase 10's release and checkpoint:
+     ``tools.analysis_tools.test_robustness.main`` on the card at B16 over
+     16 tiles with gaussian_noise, defocus_blur and elastic_transform at
+     severities 0 and 3 (4 forwards): 12 K1, 4 K4 and ≥ 1 K3 launches a
+     forward, the ``--out`` json with every (corruption, severity) and finite
+     metrics, each run's img/s and its split (read, corrupt, run_batch,
+     encode, evaluate), a traced run's idle share; the ground truth of those
+     tiles as predictions scores PQ 1; then ``pannuke.compute_stats``,
+     ``pannuke.compute_stats_all``, ``print_metric``,
+     ``calculate_confusion_matrix`` and ``convert_format`` on phase 10's
+     arrays, on a host without cv2, pandas, matplotlib or Pillow.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
-by path: wsi, strict, slide, embed, eval, patch), error, times and bound (the least time the card could take: the larger of the bytes
+by path: wsi, strict, slide, embed, eval, patch, robustness), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
 """
@@ -866,7 +878,8 @@ def phase_eval(device, tmp):
     back as predictions through ``evaluate_dataset``: PQ, AJI, Dice and mPQ
     equal 1; (e) ``infer``, ``infer_patch``, ``image_demo`` and ``feat_map``
     (pooled dataset mode, maps with --vis) over PATCH_TILES of the PNGs.
-    Returns the launches of (c) and of (e)."""
+    Returns the launches of (c) and of (e), and what phase_robustness reads:
+    the checkpoint, the data options, the release and the saved predictions."""
     import torch
     from nuhtc_tpu_torch.apis.inference import InferenceEngine, init_detector
     from nuhtc_tpu_torch.data.coco import build_dataset
@@ -1078,7 +1091,143 @@ def phase_eval(device, tmp):
         f"{kept} nuclei kept, image_demo, feat_map dataset + maps --vis) in {t_patch:.3f} s; "
         f"{det_forwards} detection and {feat_forwards} backbone forwards; "
         f"launches {counts_patch}")
-    return counts_eval, counts_patch
+    context = dict(ckpt=ckpt, data=data, release=release, ann_file=ann_file, rgb=rgb,
+                   preds=os.path.join(out_dir, "preds_pannuke.npy"), gt_results=gt_results)
+    return counts_eval, counts_patch, context
+
+
+ROBUST_TILES = 16  # the tiles of each robustness run: one forward at B16
+ROBUST_CORRUPTIONS = ("gaussian_noise", "defocus_blur", "elastic_transform")
+
+
+def phase_robustness(device, tmp, ctx):
+    """The corruption-robustness run and the host-only analysis tools, on
+    phase_eval's release and checkpoint: (a) ``test_robustness.main`` on the
+    card (PanNuke config, B16, tier block, strict path) over ROBUST_TILES
+    tiles with ROBUST_CORRUPTIONS at severities 0 and 3 (one clean run, used
+    for all three, and three corrupted: 4 forwards): 12 K1, 4 K4 and ≥ 1 K3
+    launches a forward, none of K2, every (corruption, severity) in the
+    ``--out`` json with finite metrics, img/s of each run and its split (read,
+    corrupt, run_batch, encode, evaluate), then the defocus run once more
+    under the profiler for the card's idle share; (b) the ground truth of
+    those tiles fed as predictions through the same ``evaluate_dataset``
+    scores PQ 1; (c) the host-only tools, which need no cv2, pandas,
+    matplotlib or Pillow: ``pannuke.compute_stats`` and
+    ``pannuke.compute_stats_all --mode iou`` on the release's masks and
+    phase_eval's ``preds_pannuke.npy``, ``print_metric`` on the latter's
+    tissue table, ``calculate_confusion_matrix`` of the ground truth as
+    predictions, ``convert_format`` pannuke → conic. Returns the launches of
+    (a)."""
+    import torch
+    from nuhtc_tpu_torch.data.coco import build_dataset
+    from nuhtc_tpu_torch.eval.evaluate import evaluate_dataset
+    from nuhtc_tpu_torch.tools.analysis_tools import print_metric, test_robustness
+    from nuhtc_tpu_torch.tools.analysis_tools.confusion_matrix import calculate_confusion_matrix
+    from nuhtc_tpu_torch.tools.analysis_tools.pannuke import compute_stats, compute_stats_all
+    from nuhtc_tpu_torch.tools.dataset import convert_format
+    from nuhtc_tpu_torch.tools.test import _SlicedDataset
+
+    # (a) test_robustness on the card
+    out_json = os.path.join(tmp, "robustness.json")
+    timing = []
+    reset_counts()
+    t0 = time.perf_counter()
+    _captured(lambda argv: test_robustness.main(argv, batch_size=BATCH, timing=timing), [
+        CONFIG, ctx["ckpt"], "--limit", str(ROBUST_TILES), "--corruptions", *ROBUST_CORRUPTIONS,
+        "--severities", "0", "3", "--out", out_json, "--cfg-options", *ctx["data"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = (1 + len(ROBUST_CORRUPTIONS)) * -(-ROBUST_TILES // BATCH)
+    check_counts("robustness", counts, forwards, "window_block")
+    with open(out_json) as f:
+        res = json.load(f)
+    values = [v for kind in res.values() for sev in kind.values() for v in sev.values()]
+    if (list(res) != list(ROBUST_CORRUPTIONS) or any(list(k) != ["0", "3"] for k in res.values())
+            or not values or not np.isfinite(values).all()):
+        raise AssertionError(f"robustness: json {res}")
+    for run in timing:
+        kind = ROBUST_CORRUPTIONS[0] if run["corruption"] == "clean" else run["corruption"]
+        log(f"robustness (a) {run['corruption']} s{run['severity']} on {device} (B{BATCH}, "
+            f"tier block, strict path): {run['images']} tiles in {run['seconds']:.3f} s = "
+            f"{run['images'] / run['seconds']:.2f} img/s; read {run['read_s']:.3f} s, corrupt "
+            f"{run['corrupt_s']:.3f} s, run_batch {run['run_batch_s']:.3f} s, encode "
+            f"{run['encode_s']:.3f} s, evaluate {run['evaluate_s']:.3f} s; "
+            f"pq {res[kind][str(run['severity'])]['pq']:.4f}")
+    log(f"robustness (a) {len(timing)} runs in {wall:.3f} s (model build included); "
+        f"launches {counts}")
+
+    # the defocus run once more under the profiler: the card's busy time
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuhtc_tpu_torch.apis.inference import init_detector
+
+    engine = init_detector(CONFIG, ctx["ckpt"], batch_size=BATCH)
+    dataset = build_dataset(dict(type="PanNukeCocoDataset", ann_file=ctx["ann_file"],
+                                 img_prefix=ctx["rgb"], test_mode=True))
+    defocus = lambda x: test_robustness.corrupt(x, "defocus_blur", 3)  # noqa: E731
+    test_robustness.run_eval(engine, dataset, ROBUST_TILES, defocus)  # warm-up
+    torch.cuda.synchronize()
+    parts = {}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        test_robustness.run_eval(engine, dataset, ROBUST_TILES, defocus, parts)
+        torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    run = [r for r in timing if r["corruption"] == "defocus_blur"][0]
+    log(f"robustness (a) traced defocus_blur s3 run ({traced:.3f} s under the profiler): the "
+        f"card's kernels and copies {device_s:.3f} s; idle share of the untraced run "
+        f"({run['seconds']:.3f} s) {1 - device_s / run['seconds']:.3f}, of its inference loop "
+        f"({run['seconds'] - run['evaluate_s']:.3f} s) "
+        f"{1 - device_s / (run['seconds'] - run['evaluate_s']):.3f}")
+    del engine
+
+    # (b) the ground truth of the robustness tiles as predictions
+    gt = evaluate_dataset(_SlicedDataset(dataset, ROBUST_TILES), ctx["gt_results"][:ROBUST_TILES])
+    if abs(gt["pq"] - 1.0) > 1e-5:
+        raise AssertionError(f"robustness (b): ground truth as predictions scores {gt}")
+    log(f"robustness (b) ground truth as predictions through the run's evaluate_dataset: "
+        f"pq {gt['pq']:.7f}")
+
+    # (c) the host-only tools on phase_eval's arrays
+    t0 = time.perf_counter()
+    stats_json = os.path.join(tmp, "pannuke_stats.json")
+    _captured(compute_stats.main, ["--true", ctx["release"]["masks"], "--pred", ctx["preds"],
+                                   "--types", ctx["release"]["types"], "--out", stats_json])
+    t1 = time.perf_counter()
+    with open(stats_json) as f:
+        stats = json.load(f)
+    if not {"mPQ", "bPQ", "PQ_class_0"} <= set(stats) or not 0 <= stats["bPQ"] <= 1:
+        raise AssertionError(f"pannuke.compute_stats: {stats}")
+    fold = os.path.join(tmp, "stats_iou")
+    _captured(compute_stats_all.main, [
+        "--true_path", ctx["release"]["masks"], "--pred_path", ctx["preds"], "--type_path",
+        ctx["release"]["types"], "--save_path", fold, "--mode", "iou"])
+    t2 = time.perf_counter()
+    os.replace(os.path.join(fold, "tissue_stats_PQ.csv"), os.path.join(fold, "tissue_stats.csv"))
+    _captured(print_metric.main, ["--path", fold])
+    if not os.path.exists(os.path.join(fold, "format_stats.csv")):
+        raise AssertionError("print_metric wrote no format_stats.csv")
+    cm = calculate_confusion_matrix(dataset, ctx["gt_results"])
+    n_ann = sum(len(dataset.get_ann_info(i)["labels"]) for i in range(len(dataset)))
+    if cm.shape != (6, 6) or np.trace(cm[:5, :5]) < n_ann or cm[5].sum() or cm[:, 5].sum():
+        raise AssertionError(f"confusion matrix of the ground truth: {cm.tolist()}, "
+                             f"{n_ann} annotations")
+    _captured(convert_format.main, ["--data_path", ctx["preds"], "--format", "pannuke", "--to",
+                                    "conic", "--name", "preds_conic"])
+    conic = np.load(os.path.join(os.path.dirname(ctx["preds"]), "preds_conic.npy"),
+                    mmap_mode="r")
+    if conic.shape != (EVAL_TILES, TILE, TILE, 2):
+        raise AssertionError(f"convert_format: {conic.shape}")
+    t3 = time.perf_counter()
+    log(f"robustness (c) host-only tools over {EVAL_TILES} tiles: pannuke.compute_stats "
+        f"{t1 - t0:.3f} s (mPQ {stats['mPQ']:.4f}, bPQ {stats['bPQ']:.4f}), "
+        f"compute_stats_all iou {t2 - t1:.3f} s, print_metric + confusion matrix "
+        f"({int(np.trace(cm[:5, :5]))} of {n_ann} on the diagonal) + convert_format "
+        f"{t3 - t2:.3f} s")
+    return counts
 
 
 def main() -> int:
@@ -1126,8 +1275,10 @@ def main() -> int:
         slide, *slide_parts = phase_slide(device, out_dir)
         embed = phase_tools(device, out_dir, *slide_parts)
     with tempfile.TemporaryDirectory() as tmp:
-        evaluation, patch = phase_eval(device, tmp)
-    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch)
+        evaluation, patch, context = phase_eval(device, tmp)
+        robustness = phase_robustness(device, tmp, context)
+    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
+                 robustness=robustness)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

@@ -1,5 +1,7 @@
 """Host-side test-time preprocessing (port of nuhtc_tpu/data/pipelines.py
-``preprocess_test_image``): Resize ×scale_factor, Normalize, Pad(size_divisor).
+``preprocess_test_image``): Resize ×scale_factor, Normalize, Pad(size_divisor);
+and the image-corruption catalog of that module (``CORRUPTIONS``,
+``CORRUPTION_GROUPS``), which the robustness run applies.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``. The port
 needs no OpenCV: ``resize_linear_u8`` reproduces that resize for uint8 images
@@ -11,6 +13,9 @@ nearest).
 from __future__ import annotations
 
 import numpy as np
+
+from nuhtc_tpu_torch.ops import imgproc
+from nuhtc_tpu_torch.ops.contours import circle
 
 # reference img_norm_cfg (RGB)
 IMG_NORM = dict(mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375))
@@ -76,3 +81,246 @@ def preprocess_test_image(img: np.ndarray, scale_factor: float = 2.0, mean=IMG_N
     if ph or pw:
         img = np.pad(img, ((0, ph), (0, pw), (0, 0)))
     return img
+
+
+# --- the corruption catalog (19 types of the ``imagecorruptions`` benchmark) ---
+#
+# Each function takes a uint8 RGB image, a severity in 1..5 and the caller's
+# ``np.random.RandomState``, and returns the corrupted image (float or
+# uint8; the caller clips and casts). The draws are the JAX package's draws
+# in the same order, so equal seeds give equal images. The OpenCV calls are
+# the port's numpy versions (``ops.imgproc``, ``ops.contours.circle``),
+# equal to cv2 5.0.0 but in two places: ``jpeg_compression`` goes through
+# Pillow's JPEG codec, and ``snow`` filters float32 with a kernel of 130 taps
+# or more at severities 4 and 5, where OpenCV switches to a DFT
+# (``imgproc.filter2d``). tests/test_torch_corruptions.py states both bounds.
+
+
+def _corrupt_gaussian_noise(img, sev, rng):
+    return np.clip(img.astype(np.float32) + rng.randn(*img.shape) * (4 + 4 * sev), 0, 255)
+
+
+def _corrupt_shot_noise(img, sev, rng):
+    lam = 60.0 / sev  # photons per unit intensity
+    return np.clip(rng.poisson(img.astype(np.float32) / 255.0 * lam) / lam * 255.0, 0, 255)
+
+
+def _corrupt_impulse_noise(img, sev, rng):
+    out = img.astype(np.float32).copy()
+    p = 0.01 * sev
+    m = rng.rand(*img.shape[:2])
+    out[m < p / 2] = 0.0
+    out[(m >= p / 2) & (m < p)] = 255.0
+    return out
+
+
+def _corrupt_gaussian_blur(img, sev, rng):
+    return imgproc.gaussian_blur(img, (0, 0), 0.5 * sev)
+
+
+def _corrupt_defocus_blur(img, sev, rng):
+    r = sev + 1
+    k = np.zeros((2 * r + 1, 2 * r + 1), np.float32)
+    circle(k, (r, r), r, 1.0)
+    k /= k.sum()
+    return imgproc.filter2d(img, k)
+
+
+def _line_kernel(n: int, angle: float, vertical: bool) -> np.ndarray:
+    """A one-pixel line through the centre of an n × n kernel (a row, or a
+    column), rotated by ``angle`` degrees and normalised."""
+    k = np.zeros((n, n), np.float32)
+    if vertical:
+        k[:, n // 2] = 1.0
+    else:
+        k[n // 2, :] = 1.0 / n
+    rot = imgproc.get_rotation_matrix_2d((n / 2 - 0.5, n / 2 - 0.5), angle, 1.0)
+    k = imgproc.warp_affine(k, rot, (n, n))
+    return k / max(k.sum(), 1e-6)
+
+
+def _corrupt_motion_blur(img, sev, rng):
+    return imgproc.filter2d(img, _line_kernel(2 * sev + 3, rng.uniform(0, 180), False))
+
+
+def _corrupt_zoom_blur(img, sev, rng):
+    h, w = img.shape[:2]
+    acc = img.astype(np.float32).copy()
+    cnt = 1
+    for z in np.arange(1.0, 1.0 + 0.04 * sev, 0.01)[1:]:
+        zh, zw = int(np.ceil(h * z)), int(np.ceil(w * z))
+        big = imgproc.resize_u8(img, (zh, zw))
+        y0, x0 = (zh - h) // 2, (zw - w) // 2
+        acc += big[y0:y0 + h, x0:x0 + w].astype(np.float32)
+        cnt += 1
+    return np.clip(acc / cnt, 0, 255)
+
+
+def _corrupt_jpeg(img, sev, rng):
+    """JPEG at quality max(10, 60 − 12·sev) through Pillow (imported here;
+    ImportError where it is missing). OpenCV encodes the array as BGR, so
+    the channels are swapped around the codec as OpenCV's would see them."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("jpeg_compression needs Pillow (PIL), which is not installed") from e
+    import io
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(
+        buf, format="JPEG", quality=max(10, 60 - 12 * sev))
+    buf.seek(0)
+    return np.asarray(Image.open(buf).convert("RGB"))[..., ::-1].copy()
+
+
+def _corrupt_pixelate(img, sev, rng):
+    h, w = img.shape[:2]
+    f = 1.0 - 0.15 * sev
+    small = imgproc.resize_u8(img, (max(1, int(h * f)), max(1, int(w * f))))
+    return imgproc.resize_nearest(small, (h, w))
+
+
+def _corrupt_brightness(img, sev, rng):
+    return np.clip(img.astype(np.float32) + 20.0 * sev, 0, 255)
+
+
+def _corrupt_contrast(img, sev, rng):
+    f = 1.0 - 0.15 * sev
+    mean = img.astype(np.float32).mean(axis=(0, 1), keepdims=True)
+    return np.clip((img.astype(np.float32) - mean) * f + mean, 0, 255)
+
+
+def _corrupt_saturate(img, sev, rng):
+    hsv = imgproc.rgb_to_hsv_u8(img).astype(np.float32)
+    hsv[..., 1] = np.clip(hsv[..., 1] * (1.0 + 0.2 * sev), 0, 255)
+    return imgproc.hsv_to_rgb_u8(hsv.astype(np.uint8))
+
+
+def _corrupt_speckle_noise(img, sev, rng):
+    # multiplicative gaussian noise (imagecorruptions speckle_noise)
+    f = img.astype(np.float32)
+    return np.clip(f + f * rng.randn(*img.shape) * (0.06 + 0.04 * sev), 0, 255)
+
+
+def _corrupt_glass_blur(img, sev, rng):
+    # local pixel shuffling between two light blurs (imagecorruptions glass_blur)
+    out = imgproc.gaussian_blur(img, (0, 0), 0.3 + 0.2 * sev)
+    h, w = out.shape[:2]
+    d = sev  # the largest displacement
+    for _ in range(2):
+        dx = rng.randint(-d, d + 1, (h, w))
+        dy = rng.randint(-d, d + 1, (h, w))
+        xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+        out = out[np.clip(yy + dy, 0, h - 1), np.clip(xx + dx, 0, w - 1)]
+    return imgproc.gaussian_blur(out, (0, 0), 0.3 + 0.2 * sev)
+
+
+def _plasma(h, w, rng, roughness=0.8):
+    """A diamond-square-style fractal cloud in [0, 1] (the fog and frost base)."""
+    size = 1
+    while size < max(h, w):
+        size *= 2
+    grid = rng.rand(2, 2).astype(np.float32)
+    scale = 1.0
+    while grid.shape[0] < size + 1:
+        n = (grid.shape[0] - 1) * 2 + 1
+        up = imgproc.resize_linear_f32(grid, (n, n))
+        scale *= roughness
+        grid = up + (rng.rand(n, n).astype(np.float32) - 0.5) * scale
+    g = grid[:h, :w]
+    g -= g.min()
+    return g / max(g.max(), 1e-6)
+
+
+def _corrupt_fog(img, sev, rng):
+    h, w = img.shape[:2]
+    fog = _plasma(h, w, rng)[..., None]
+    amount = 0.12 * sev
+    f = img.astype(np.float32) / 255.0
+    out = f * (1 - amount * fog) + amount * fog * 0.9
+    return np.clip(out * 255.0, 0, 255)
+
+
+def _corrupt_frost(img, sev, rng):
+    # a crystalline overlay synthesised from a thresholded plasma texture
+    # (imagecorruptions composites frost photographs; no asset files here)
+    h, w = img.shape[:2]
+    tex = _plasma(h, w, rng, roughness=0.9)
+    crystal = np.clip((tex - 0.55) * 4.0, 0, 1)[..., None]
+    amount = 0.1 + 0.08 * sev
+    f = img.astype(np.float32) / 255.0
+    out = f * (1 - amount * crystal) + amount * crystal * np.array([0.9, 0.95, 1.0])
+    return np.clip(out * 255.0, 0, 255)
+
+
+def _corrupt_snow(img, sev, rng):
+    # sparse bright specks, motion-blurred into flakes, under a whitening veil
+    h, w = img.shape[:2]
+    layer = (rng.rand(h, w) < 0.002 * sev).astype(np.float32)
+    n = 2 * sev + 5
+    k = _line_kernel(n, rng.uniform(-30, 30), True)
+    flakes = np.clip(imgproc.filter2d(layer, k) * n * 0.8, 0, 1)[..., None]
+    f = img.astype(np.float32) / 255.0
+    veil = 0.04 * sev
+    out = (f * (1 - veil) + veil) * (1 - flakes) + flakes
+    return np.clip(out * 255.0, 0, 255)
+
+
+def _corrupt_spatter(img, sev, rng):
+    # liquid blobs: blurred noise thresholded into droplets (imagecorruptions
+    # spatter's water mode), darkening where they land
+    h, w = img.shape[:2]
+    liquid = imgproc.gaussian_blur(rng.rand(h, w).astype(np.float32), (0, 0), 3.0)
+    thr = 1.0 - 0.04 * sev - 0.62
+    m = np.clip((liquid - thr) * 8.0, 0, 1)[..., None]
+    f = img.astype(np.float32) / 255.0
+    tint = f * np.array([0.75, 0.85, 0.95])
+    out = f * (1 - 0.6 * m) + tint * (0.6 * m)
+    return np.clip(out * 255.0, 0, 255)
+
+
+def _corrupt_elastic(img, sev, rng):
+    h, w = img.shape[:2]
+    alpha = 2.0 * sev
+    dx = imgproc.gaussian_blur(rng.rand(h, w).astype(np.float32) * 2 - 1, (0, 0), 8) * alpha
+    dy = imgproc.gaussian_blur(rng.rand(h, w).astype(np.float32) * 2 - 1, (0, 0), 8) * alpha
+    xx, yy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    return imgproc.remap(img, xx + dx, yy + dy)
+
+
+# name → function, in the JAX package's order
+CORRUPTIONS = {
+    "gaussian_noise": _corrupt_gaussian_noise,
+    "shot_noise": _corrupt_shot_noise,
+    "impulse_noise": _corrupt_impulse_noise,
+    "speckle_noise": _corrupt_speckle_noise,
+    "gaussian_blur": _corrupt_gaussian_blur,
+    "glass_blur": _corrupt_glass_blur,
+    "defocus_blur": _corrupt_defocus_blur,
+    "motion_blur": _corrupt_motion_blur,
+    "zoom_blur": _corrupt_zoom_blur,
+    "snow": _corrupt_snow,
+    "frost": _corrupt_frost,
+    "fog": _corrupt_fog,
+    "spatter": _corrupt_spatter,
+    "jpeg_compression": _corrupt_jpeg,
+    "pixelate": _corrupt_pixelate,
+    "brightness": _corrupt_brightness,
+    "contrast": _corrupt_contrast,
+    "saturate": _corrupt_saturate,
+    "elastic_transform": _corrupt_elastic,
+}
+
+# the groups of the corruption benchmark (mmdet's test_robustness lists)
+CORRUPTION_GROUPS = {
+    "noise": ["gaussian_noise", "shot_noise", "impulse_noise"],
+    "blur": ["defocus_blur", "glass_blur", "motion_blur", "zoom_blur"],
+    "weather": ["snow", "frost", "fog", "brightness"],
+    "digital": ["contrast", "elastic_transform", "pixelate", "jpeg_compression"],
+    "holdout": ["speckle_noise", "gaussian_blur", "spatter", "saturate"],
+}
+CORRUPTION_GROUPS["benchmark"] = (
+    CORRUPTION_GROUPS["noise"] + CORRUPTION_GROUPS["blur"]
+    + CORRUPTION_GROUPS["weather"] + CORRUPTION_GROUPS["digital"]
+)
+CORRUPTION_GROUPS["all"] = CORRUPTION_GROUPS["benchmark"] + CORRUPTION_GROUPS["holdout"]

@@ -16,7 +16,8 @@ result ``cv2`` (5.0.0) gives, point for point:
   border returns to it;
 - ``contour_area`` (Green's formula), ``bounding_rect``,
   ``point_polygon_test`` (the sign-only integer form), ``draw_contours``
-  (thin outlines, or filled with an offset) and ``rectangle``;
+  (thin outlines, or filled with an offset), ``rectangle`` and the filled
+  ``circle`` of the corruption catalog;
 - for the offline slide tools: ``fill_poly`` (OpenCV's edge-list scan
   conversion in 16.16 fixed point, with its clipping), ``convex_hull`` and
   ``fill_convex_poly``, ``arc_length``, contour and image moments, Hu
@@ -473,6 +474,34 @@ def rectangle(img: np.ndarray, pt1: Sequence[int], pt2: Sequence[int], color,
     (x1, y1), (x2, y2) = (int(v) for v in pt1), (int(v) for v in pt2)
     ring = np.array([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.int64)
     return draw_contours(img, [ring], color, thickness)
+
+
+def circle(img: np.ndarray, center: Sequence[int], radius: int, color) -> np.ndarray:
+    """``cv2.circle(img, center, radius, color, -1)`` (filled, LINE_8), in
+    place (and returned): OpenCV's midpoint walk over one octant, each step
+    filling the four horizontal spans it reaches, clipped to the image."""
+    h, w = img.shape[:2]
+    cx, cy = (int(v) for v in center)
+    err, dx, dy, plus, minus = 0, int(radius), 0, 1, (int(radius) << 1) - 1
+
+    def span(y, x1, x2):
+        x1, x2 = max(x1, 0), min(x2, w - 1)
+        if 0 <= y < h and x1 <= x2:
+            img[y, x1:x2 + 1] = color
+
+    while dx >= dy:
+        span(cy - dy, cx - dx, cx + dx)
+        span(cy + dy, cx - dx, cx + dx)
+        span(cy - dx, cx - dy, cx + dy)
+        span(cy + dx, cx - dy, cx + dy)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return img
 
 
 def convex_hull(points: np.ndarray) -> np.ndarray:

@@ -4,17 +4,24 @@ OpenCV's bit for bit unless its docstring states a tolerance: saturation of
 RGB→HSV, median blur, fixed and Otsu thresholds, the morphological close
 with an even kernel and the bilinear resize of tissue segmentation; for the
 offline tools the gray and LAB conversions (LAB → RGB within a few levels),
-3 × 3 Sobel, Canny, the Gaussian blur (uint8 at large sizes within 2),
-``addWeighted`` and the nearest-neighbour resize."""
+3 × 3 Sobel, Canny, the Gaussian blur, ``addWeighted`` and the
+nearest-neighbour resize; for the corruption catalog ``filter2D``,
+``getRotationMatrix2D``, ``warpAffine`` and ``remap`` (bilinear), the float32
+bilinear resize and RGB ↔ HSV.
+
+Where OpenCV computes in float32 with fused multiply-adds (its Gaussian and
+``filter2D`` accumulations, the bilinear taps of ``warpAffine``, ``remap``
+and the float resize, HSV → RGB), the fused operation is formed here in
+float64, where the product of two float32 values is exact, and rounded once
+to float32 (``_fma``)."""
 
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 from typing import Tuple
 
 import numpy as np
-
-from nuhtc_tpu_torch.data.pipelines import resize_linear_u8
 
 _HSV_SHIFT = 12
 # OpenCV's table of (255 << 12) / v, rounded half to even; v = 0 gives 0
@@ -112,6 +119,8 @@ def resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     (H, W, C) image, with OpenCV's two special cases: an equal size is a
     copy, and an exact halving of both axes is the rounded mean of each
     2 × 2 block (OpenCV switches to its area method there)."""
+    from nuhtc_tpu_torch.data.pipelines import resize_linear_u8
+
     h, w = img.shape[:2]
     oh, ow = out_hw
     if (oh, ow) == (h, w):
@@ -248,57 +257,106 @@ _SMALL_GAUSSIAN = {1: (1.0,), 3: (0.25, 0.5, 0.25), 5: (0.0625, 0.25, 0.375, 0.2
                    9: tuple(v / 256 for v in (4, 13, 30, 51, 60, 51, 30, 13, 4))}
 
 
-def _auto_sigma(n: int) -> float:
-    return ((n - 1) * 0.5 - 1) * 0.3 + 0.8
-
-
-def gaussian_kernel(n: int) -> np.ndarray:
-    """``cv2.getGaussianKernel(n, 0)`` in float64: the fixed table up to 9,
-    else exp(−x²/2σ²) normalised, σ = 0.3((n − 1)/2 − 1) + 0.8."""
-    if n in _SMALL_GAUSSIAN:
+def _gaussian_taps(n: int, sigma: float) -> np.ndarray:
+    """``getGaussianKernelBitExact``: the fixed table for an automatic sigma
+    up to 9, else exp(−x²/2σ²) over the n taps, normalised, in float64."""
+    if sigma <= 0 and n in _SMALL_GAUSSIAN:
         return np.asarray(_SMALL_GAUSSIAN[n])
-    x = np.arange(n) - (n - 1) * 0.5
-    s = _auto_sigma(n)
-    k = np.exp(-0.5 / (s * s) * x * x)
-    return k / k.sum()
+    # an automatic sigma is OpenCV's mulAdd(n, 0.15, 0.35): one rounding
+    s = sigma if sigma > 0 else float(Fraction(n) * Fraction(0.15) + Fraction(0.35))
+    scale2 = -0.125 / (s * s)
+    vals = [math.exp(float(x * x) * scale2) for x in range(1 - n, 0, 2)]
+    mul = 1.0 / (2 * sum(vals) + 1.0)
+    side = [v * mul for v in vals]
+    return np.asarray(side + [mul] + side[::-1])
 
 
-def _gaussian_kernel_q8(n: int) -> np.ndarray:
-    """OpenCV's bit-exact uint8 kernel: 8 fractional bits, each tap rounded,
-    the centre what makes the sum exactly 1."""
-    if n in _SMALL_GAUSSIAN:
-        return np.rint(np.asarray(_SMALL_GAUSSIAN[n]) * 256).astype(np.int64)
-    s = _auto_sigma(n)
-    vals = [math.exp((x * x) * (-0.125 / (s * s))) for x in range(1 - n, 0, 2)]
-    total = 2 * sum(vals) + 1.0
-    taps = [int(np.rint(v / total * 256)) for v in vals]
+def _gaussian_kernel_q8(n: int, sigma: float = 0.0) -> np.ndarray:
+    """OpenCV's bit-exact uint8 kernel: 8 fractional bits, the taps of one
+    side rounded in turn with error diffusion (each carries the rounding
+    error of the one before), the centre what makes the sum exactly 1."""
+    taps, err = [], 0.0
+    for v in _gaussian_taps(n, sigma)[:n // 2]:
+        adj = v * 256 + err
+        q = int(np.rint(adj))
+        err = adj - q
+        taps.append(q)
     return np.asarray(taps + [256 - 2 * sum(taps)] + taps[::-1], np.int64)
 
 
-def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int]) -> np.ndarray:
-    """``cv2.GaussianBlur(img, ksize, 0)`` (σ from the kernel size,
-    BORDER_REFLECT_101) of a float64 or uint8 image, (H, W) or (H, W, C);
-    ``ksize`` is (width, height), both odd.
+def _fma(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add a·b + c, rounded once (float64 holds a
+    float32 product exactly)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
 
-    float64: the separable product in doubles, within 1e-15 of OpenCV's
-    (the order of the sums differs). uint8 with both sizes ≤ 11: OpenCV's
-    bit-exact fixed point (8-bit taps, rows then columns in integers, one
-    rounding shift), equal to cv2 5.0.0. uint8 with a size ≥ 13: OpenCV takes
-    another integer route there, which is not reproduced; here the float64
-    product is rounded, within 1 of cv2 5.0.0 at sizes 17 and 33 and within 2
-    at 13 (tests/test_torch_shape_ops.py)."""
+
+def _gaussian_f32(img: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """OpenCV's float32 separable Gaussian (``RowFilter`` with ``RowVec_32f``,
+    then ``SymmColumnFilter`` with ``SymmColumnVec_32f``), as an x86-64 host
+    with AVX2 runs it. Each row value is a left-to-right chain of fused
+    multiply-adds over the float32 taps, but for the last (W·C) mod 4 values
+    of a row, which OpenCV multiplies and adds without fusing; each column
+    value is the centre tap times the centre, then per distance d the fused
+    multiply-add of tap d with the float32 sum of the rows d above and d
+    below, but for the last (W·C) mod 8 values, again without fusing."""
+    n = len(k)
+    r = n // 2
+    h, w = img.shape[:2]
+    p = np.take(img.astype(np.float32), _reflect_index(w, r), axis=1)
+    rows = np.zeros(img.shape, np.float32)
+    for i in range(n):
+        rows = _fma(p[:, i:i + w], k[i], rows)
+    tail = _scalar_tail(img.shape, 4)
+    plain = p[:, 0:w][:, tail] * k[0]
+    for i in range(1, n):
+        plain += p[:, i:i + w][:, tail] * k[i]
+    rows[:, tail] = plain
+    q = np.take(rows, _reflect_index(h, r), axis=0)
+    out = _fma(q[r:r + h], k[r], np.float32(0))
+    tail = _scalar_tail(img.shape, 8)
+    plain = q[r:r + h][:, tail] * k[r]
+    for d in range(1, r + 1):
+        out = _fma(q[r + d:r + d + h] + q[r - d:r - d + h], k[r + d], out)
+        plain += (q[r + d:r + d + h][:, tail] + q[r - d:r - d + h][:, tail]) * k[r + d]
+    out[:, tail] = plain
+    return out
+
+
+def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float = 0.0) -> np.ndarray:
+    """``cv2.GaussianBlur(img, ksize, sigma)`` (BORDER_REFLECT_101) of a
+    float64, float32 or uint8 image, (H, W) or (H, W, C). ``ksize`` is
+    (width, height), both odd, or (0, 0) to take it from ``sigma`` as OpenCV
+    does (round(σ·6 + 1) for uint8, round(σ·8 + 1) otherwise, made odd); a
+    sigma of 0 takes σ from the size.
+
+    uint8: OpenCV's bit-exact fixed point (8-bit taps rounded with error
+    diffusion, rows then columns in integers, one rounding shift), equal to
+    cv2 5.0.0 at every size. float32: OpenCV's chains of fused
+    multiply-adds (``_gaussian_f32``) for sizes of at least 7 (smaller
+    float32 kernels take other code there and are refused here); equal to
+    cv2 5.0.0 where W·C is a multiple of 4 (the catalog's tiles), else
+    within 1e-7 of it on the last W·C mod 4 values of some rows, where
+    OpenCV's scalar code does not always sum as ``_gaussian_f32`` does. float64: the separable product in doubles, within 1e-15 of
+    OpenCV's (the order of the sums differs)."""
     kw, kh = int(ksize[0]), int(ksize[1])
+    if (kw, kh) == (0, 0):
+        if sigma <= 0:
+            raise ValueError("gaussian_blur needs a kernel size or a positive sigma")
+        kw = kh = int(np.rint(sigma * (3 if img.dtype == np.uint8 else 4) * 2 + 1)) | 1
     if kw % 2 != 1 or kh % 2 != 1:
         raise ValueError(f"gaussian_blur takes odd kernel sizes, got {ksize}")
     if img.dtype == np.uint8:
-        if max(kw, kh) <= 11:
-            v = _separable(img, _gaussian_kernel_q8(kw), _gaussian_kernel_q8(kh))
-            return np.clip((v + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
-        v = _separable(img, gaussian_kernel(kw), gaussian_kernel(kh))
-        return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+        v = _separable(img, _gaussian_kernel_q8(kw, sigma), _gaussian_kernel_q8(kh, sigma))
+        return np.clip((v + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+    if img.dtype == np.float32:
+        if kw != kh or kw < 7:
+            raise ValueError(f"gaussian_blur takes float32 with equal sizes of at least 7, "
+                             f"got {ksize}")
+        return _gaussian_f32(img, _gaussian_taps(kw, sigma).astype(np.float32))
     if img.dtype != np.float64:
-        raise ValueError(f"gaussian_blur takes float64 or uint8, got {img.dtype}")
-    return _separable(img, gaussian_kernel(kw), gaussian_kernel(kh))
+        raise ValueError(f"gaussian_blur takes float64, float32 or uint8, got {img.dtype}")
+    return _separable(img, _gaussian_taps(kw, sigma), _gaussian_taps(kh, sigma))
 
 
 def add_weighted_u8(a: np.ndarray, alpha: float, b: np.ndarray, beta: float,
@@ -392,3 +450,242 @@ def lab_to_rgb_u8(lab: np.ndarray) -> np.ndarray:
     lin = np.clip(xyz @ np.linalg.inv(_RGB2XYZ).T, 0, 1)
     srgb = np.where(lin <= 0.0031308, 12.92 * lin, 1.055 * lin ** (1 / 2.4) - 0.055)
     return np.clip(np.rint(srgb * 255), 0, 255).astype(np.uint8)
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel)``: correlation (not convolution) with
+    a float32 kernel anchored at (kh // 2, kw // 2), BORDER_REFLECT_101, of a
+    uint8 or float32 image, (H, W) or (H, W, C). As OpenCV's direct path:
+    the non-zero taps in raster order, each a float32 fused multiply-add
+    onto the running sum, but for the last values of each row, which OpenCV
+    sums in scalar code without fusing (``_scalar_tail``); uint8 rounded
+    half to even and saturated. Equal to cv2 5.0.0 for kernels of fewer than
+    130 taps.
+
+    With 130 taps or more (13 × 13 and up) OpenCV correlates through its
+    DFT, which is not reproduced: the sum is taken in float64 and rounded,
+    for float32 within 4e-7 of cv2 5.0.0 on values in [0, 1], for uint8
+    within 1 level on the few pixels that lie within 1e-5 of a half
+    (tests/test_torch_corruptions.py)."""
+    if img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"filter2d takes uint8 or float32, got {img.dtype}")
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    ay, ax = kh // 2, kw // 2
+    h, w = img.shape[:2]
+    src = img.astype(np.float32)
+    p = np.take(np.take(src, _border_index(h, ay, kh - 1 - ay, "reflect101"), axis=0),
+                _border_index(w, ax, kw - 1 - ax, "reflect101"), axis=1)
+    taps = [(dy, dx) for dy in range(kh) for dx in range(kw) if k[dy, dx] != 0]
+    if kh * kw >= 130:
+        acc = np.zeros(img.shape, np.float64)
+        for dy, dx in taps:
+            acc += p[dy:dy + h, dx:dx + w].astype(np.float64) * float(k[dy, dx])
+        s = acc.astype(np.float32) if img.dtype == np.float32 else acc
+    else:
+        s = np.zeros(img.shape, np.float32)
+        tail = _scalar_tail(img.shape, 4 if img.dtype == np.uint8 else 8)
+        plain = np.zeros(img[:, tail].shape, np.float32)
+        for dy, dx in taps:
+            s = _fma(p[dy:dy + h, dx:dx + w], k[dy, dx], s)
+            plain += p[dy:dy + h, dx:dx + w][:, tail] * k[dy, dx]
+        s[:, tail] = plain
+    if img.dtype == np.uint8:
+        return np.clip(np.rint(s), 0, 255).astype(np.uint8)
+    return s
+
+
+def _scalar_tail(shape, step: int) -> np.ndarray:
+    """The (W[, C]) positions of an (H, W[, C]) image whose values OpenCV's
+    ``filter2D`` sums in scalar code: on an x86-64 host with AVX2 its vector
+    code takes each row's W·C values ``step`` at a time (4 for uint8, 8 for
+    float32) and leaves the rest."""
+    w, c = shape[1], (shape[2] if len(shape) > 2 else 1)
+    flat = np.arange(w * c).reshape((w, c) if len(shape) > 2 else (w,))
+    return flat >= (w * c) // step * step
+
+
+def _border_index(n: int, before: int, after: int, mode: str) -> np.ndarray:
+    """Source indices of an axis of length n padded by ``before`` and
+    ``after``: "reflect101" is BORDER_REFLECT_101 (gfedcb|abcdefgh|gfedcba),
+    "reflect" BORDER_REFLECT (fedcba|abcdefgh|hgfedcb)."""
+    return _border(np.arange(-before, n + after), n, mode)
+
+
+def _border(i: np.ndarray, n: int, mode: str) -> np.ndarray:
+    if n == 1:
+        return np.zeros_like(i)
+    if mode == "reflect101":
+        i = np.abs(i) % (2 * n - 2)
+        return np.where(i >= n, 2 * n - 2 - i, i)
+    i = np.mod(i, 2 * n)
+    return np.where(i >= n, 2 * n - 1 - i, i)
+
+
+def get_rotation_matrix_2d(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: (2, 3) float64, the
+    angle in degrees counter-clockwise, the centre rounded to float32 as
+    OpenCV's ``Point2f`` holds it."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _bilinear(p00, p01, p10, p11, a, b) -> np.ndarray:
+    """OpenCV's float32 bilinear step: two fused lerps along x, one along y."""
+    v0 = _fma(a, p01 - p00, p00)
+    v1 = _fma(a, p11 - p10, p10)
+    return _fma(b, v1 - v0, v0)
+
+
+def _split_coord(s: np.ndarray):
+    i = np.floor(s).astype(np.int64)
+    return i, (s - i.astype(np.float32)).astype(np.float32)
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize)`` (INTER_LINEAR, BORDER_CONSTANT 0) of
+    a float32 (H, W) image; ``dsize`` is (width, height). OpenCV inverts the
+    matrix in doubles, rounds it to float32, and per output pixel forms the
+    source point as fma(x, m00, y·m01) + m02 in float32 (so does its scalar
+    code, which serves rows narrower than 16), then ``_bilinear`` with 0
+    outside the image. Equal to cv2 5.0.0 for widths below 16, which is all
+    the corruption catalog warps (kernels of at most 15 taps); wider rows
+    take OpenCV's vector code, which forms the point in another order."""
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise ValueError(f"warp_affine takes a float32 (H, W) image, got {img.dtype} {img.shape}")
+    m = [float(v) for v in np.asarray(m, np.float64).ravel()]
+    det = m[0] * m[4] - m[1] * m[3]
+    det = 1.0 / det if det != 0 else 0.0
+    a11, a22 = m[4] * det, m[0] * det
+    m[0], m[1], m[3], m[4] = a11, m[1] * -det, m[3] * -det, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    f = np.asarray(m, np.float32)
+    ow, oh = dsize
+    yy, xx = np.mgrid[:oh, :ow].astype(np.float32)
+    sx = (_fma(xx, f[0], yy * f[1]) + f[2]).astype(np.float32)
+    sy = (_fma(xx, f[3], yy * f[4]) + f[5]).astype(np.float32)
+    ix, a = _split_coord(sx)
+    iy, b = _split_coord(sy)
+    h, w = img.shape
+
+    def tap(y, x):
+        inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        return np.where(inside, img[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)], np.float32(0))
+
+    return _bilinear(tap(iy, ix), tap(iy, ix + 1), tap(iy + 1, ix), tap(iy + 1, ix + 1), a, b)
+
+
+def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_REFLECT)`` of a uint8 (H, W) or (H, W, C) image
+    with float32 maps: cv2 5.0.0 takes the source point as given (no 1/32
+    grid), reflects each of the four taps that leaves the image on its own
+    (BORDER_REFLECT, the edge pixel repeated), interpolates in float32
+    (``_bilinear``), rounds half to even and saturates. Equal to cv2 5.0.0."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"remap takes a uint8 image, got {img.dtype}")
+    h, w = img.shape[:2]
+    ix, a = _split_coord(np.asarray(map_x, np.float32))
+    iy, b = _split_coord(np.asarray(map_y, np.float32))
+    if img.ndim == 3:
+        a, b = a[..., None], b[..., None]
+    x0, x1 = _border(ix, w, "reflect"), _border(ix + 1, w, "reflect")
+    y0, y1 = _border(iy, h, "reflect"), _border(iy + 1, h, "reflect")
+    s = img.astype(np.float32)
+    v = _bilinear(s[y0, x0], s[y0, x1], s[y1, x0], s[y1, x1], a, b)
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+def resize_linear_f32(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` (INTER_LINEAR) of a float32 (H, W) or
+    (H, W, C) image, as cv2 5.0.0 computes it: half-pixel centres, the
+    fraction of each source coordinate taken in doubles and rounded to
+    float32 (along x a tap starting outside the image snaps onto the border
+    pixel; along y both rows are clamped), then a fused lerp along x and one
+    along y. Equal to cv2 5.0.0."""
+    if img.dtype != np.float32:
+        raise ValueError(f"resize_linear_f32 takes float32, got {img.dtype}")
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+
+    def taps(dst, src, snap):
+        f = (np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5
+        i = np.floor(f).astype(np.int64)
+        frac = (f - i).astype(np.float32)
+        if snap:
+            frac[(i < 0) | (i >= src - 1)] = 0.0
+        return np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1), frac
+
+    x0, x1, a = taps(ow, w, True)
+    y0, y1, b = taps(oh, h, False)
+    shape = (1, ow) + (1,) * (img.ndim - 2)
+    a = a.reshape(shape)
+    rows = _fma(a, img[:, x1] - img[:, x0], img[:, x0])
+    b = b.reshape((oh, 1) + (1,) * (img.ndim - 2))
+    return _fma(b, rows[y1] - rows[y0], rows[y0])
+
+
+# OpenCV's tables for uint8 RGB → HSV: (255 << 12) / v for S (``_SDIV``
+# above) and (180 << 12) / (6 · diff) for H, rounded half to even
+_HDIV = np.zeros(256, np.int64)
+_HDIV[1:] = np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256, dtype=np.float64))
+                    ).astype(np.int64)
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` for uint8, H in [0, 180):
+    OpenCV's integer tables and 12-bit rounding shifts. Equal to cv2 5.0.0
+    on all 2²⁴ colours."""
+    if img.dtype != np.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"rgb_to_hsv_u8 takes a uint8 (..., 3) image, got {img.dtype} {img.shape}")
+    s = img.astype(np.int64)
+    r, g, b = s[..., 0], s[..., 1], s[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    sat = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    hue = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    hue = (hue * _HDIV[diff] + half) >> _HSV_SHIFT
+    hue = np.where(hue < 0, hue + 180, hue)
+    return np.stack([hue, sat, v], -1).astype(np.uint8)
+
+
+# the table entries (v, v(1 − s), v(1 − s·f), v(1 − s(1 − f))) that give B, G, R per sector
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` for a uint8 (..., W, 3)
+    image, H in [0, 180): OpenCV's float32 route (S and V over 255,
+    H · 6/180 modulo 6 split into a sector and a fraction, v(1 − s·f) and
+    v(1 − s(1 − f)) with the inner term a fused multiply-add), each channel
+    times 255. cv2 5.0.0 on an x86-64 host with AVX2 converts the first
+    32·⌊W/32⌋ pixels of each row in vector code, which truncates, and the
+    rest of the row in scalar code, which rounds half to even; so does this
+    function. Equal to cv2 5.0.0 on all 2²⁴ inputs at widths 1 and 64."""
+    if hsv.dtype != np.uint8 or hsv.ndim < 2 or hsv.shape[-1] != 3:
+        raise ValueError(f"hsv_to_rgb_u8 takes a uint8 (..., W, 3) image, got {hsv.dtype} "
+                         f"{hsv.shape}")
+    f32, one = np.float32, np.float32(1)
+    h = hsv[..., 0].astype(f32)
+    s = hsv[..., 1].astype(f32) * f32(1 / 255)
+    v = hsv[..., 2].astype(f32) * f32(1 / 255)
+    h = np.fmod(h * f32(6 / 180), f32(6))
+    sector = np.floor(h).astype(np.int64)
+    frac = (h - sector.astype(f32)).astype(f32)
+    off = (sector < 0) | (sector >= 6)
+    sector, frac = np.where(off, 0, sector), np.where(off, f32(0), frac)
+    tab = np.stack([v, v * (one - s), v * _fma(-s, frac, one),
+                    v * _fma(-s, one - frac, one)], -1).astype(f32)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector], -1)
+    bgr = np.where((s == 0)[..., None], v[..., None], bgr)
+    rgb = bgr[..., ::-1] * f32(255)
+    w = hsv.shape[-2]
+    vector = (np.arange(w) < w - w % _HSV_VECTOR_PIXELS)[:, None]
+    return np.clip(np.where(vector, np.floor(rgb), np.rint(rgb)), 0, 255).astype(np.uint8)
+
+
+_HSV_VECTOR_PIXELS = 32  # the pixels of one vector step of cv2's HSV → RGB

@@ -205,9 +205,8 @@ def vis_heatmap(
     ``scores`` are raw in [0, 1] (or any range with
     convert_to_percentiles=True); ``coords`` are level-0 (x, y). Returns an
     RGB uint8 array at ``vis_level`` (optionally downscaled), equal to the
-    JAX package's, except that with ``blur`` and a kernel of 13 or more the
-    uint8 blur is within 2 levels of OpenCV's (``ops.imgproc.gaussian_blur``;
-    ≤ 1 on the tests' heatmaps, tests/test_torch_heatmap.py).
+    JAX package's (the blur is ``ops.imgproc.gaussian_blur``, OpenCV's
+    bit-exact uint8 Gaussian at every kernel size; tests/test_torch_heatmap.py).
     """
     scores = np.asarray(scores, np.float64).reshape(-1).copy()
     coords = np.asarray(coords, np.int64).reshape(-1, 2)

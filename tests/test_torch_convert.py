@@ -160,7 +160,15 @@ def test_port_never_imports_jax():
                   "tools.extract_features_nuhtc", "utils.tables", "registry", "data.coco",
                   "data.loader", "eval.stats", "eval.evaluate", "eval.coco_map", "eval.nucls",
                   "eval.interrater", "utils.visualize", "tools.test", "tools.preprocess_pannuke",
-                  "tools.infer", "tools.infer_patch", "tools.image_demo", "tools.feat_map")
+                  "tools.infer", "tools.infer_patch", "tools.image_demo", "tools.feat_map",
+                  "data.pipelines", "tools.dataset.convert_format",
+                  "tools.analysis_tools.test_robustness", "tools.analysis_tools.viz_utils",
+                  "tools.analysis_tools.pannuke.compute_stats_all",
+                  "tools.analysis_tools.conic.compute_stats",
+                  "tools.analysis_tools.conic.misc.patch_extractor",
+                  "tools.analysis_tools.consep.compute_stats",
+                  "tools.analysis_tools.coco_error_analysis",
+                  "tools.analysis_tools.print_metric")
         missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
         assert not missing, missing
         bad = sorted(m for m in new
@@ -205,6 +213,8 @@ def test_port_sources_name_no_opencv_or_pandas_import():
     for root, _, names in os.walk(os.path.join(REPO, "nuhtc_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert any(f.endswith(os.path.join("wsi", "infer.py")) for f in files)
+    assert any(f.endswith(os.path.join("consep", "compute_stats.py")) for f in files)
+    assert any(f.endswith(os.path.join("dataset", "convert_format.py")) for f in files)
     sources = {os.path.relpath(f, REPO): open(f).read() for f in files}
     assert not [f for f, text in sources.items() if pat.search(text)]
     assert not [f for f, text in sources.items() if lazy.search(text)]

@@ -5,9 +5,8 @@ reader with the same methods).
 
 ``vis_heatmap`` over its options (blur, binarize, percentiles, holes, alpha
 < 1, a region, ``custom_downsample``, ``max_size``, blank canvas, another
-vis level): exactly equal, or within 1 level where the uint8 Gaussian blur
-runs at a kernel size ≥ 13, which the port does not reproduce bit for bit
-(``ops.imgproc.gaussian_blur``). ``get_seg_mask``, ``iter_patches``,
+vis level): exactly equal, the blur included (``ops.imgproc.gaussian_blur``
+is OpenCV's bit-exact uint8 Gaussian at every kernel size). ``get_seg_mask``, ``iter_patches``,
 ``to_percentiles``, ``screen_coords`` and the patch filters: equal. The
 built-in "coolwarm" table: equal to matplotlib 3.10.8's, indexed as a
 ``Colormap`` call indexes it; another map name goes through matplotlib and
@@ -56,7 +55,7 @@ def test_vis_heatmap_equals_jax(slide_seg_coords, kw):
     want = J.vis_heatmap(slide, scores, coords, seg, **kw)
     assert got.dtype == np.uint8 and got.shape == want.shape
     d = np.abs(got.astype(int) - want)
-    assert d.max() <= (1 if kw.get("blur") else 0), d.max()
+    assert d.max() == 0, d.max()
 
 
 @pytest.mark.parametrize("use_holes", [False, True])
