@@ -104,14 +104,32 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      tiles as predictions scores PQ 1; then ``pannuke.compute_stats``,
      ``pannuke.compute_stats_all``, ``print_metric``,
      ``calculate_confusion_matrix`` and ``convert_format`` on phase 10's
-     arrays, on a host without cv2, pandas, matplotlib or Pillow.
+     arrays, on a host without cv2, pandas, matplotlib or Pillow;
+ 12. supervised training (``phase_train``) on phase 10's release:
+     ``tools.train.main`` on the PanNuke config at full width (B8, 512²,
+     bf16 autocast, f32 AdamW + EMA) through the full train pipeline and
+     ``PrefetchLoader``: two epochs of 4 steps with a checkpoint and an
+     evaluation of the EMA weights after each, then ``--resume-from`` for a
+     third; every loss finite, the frozen stage-0 leaves bit-equal to their
+     seed-0 start and the rest moved, the EMA moved, the step count and lr
+     following on after the resume, 4 K4 forwards and 4 K4 backwards and
+     ≥ 1 K3 a step, the gradient K4's backward hands to p2 non-zero; the EMA
+     checkpoint through ``init_detector(use_ema=True)`` and one
+     ``run_batch``; s/step, img/s and its split (loader wait, forward,
+     backward, optimizer + EMA), the card's idle share over 3 profiled
+     steps, the peak memory; K4's backward at the four calls of a step
+     against autograd through the plain version (f32 within 1e-4 of each
+     map's gradient scale, bf16 within 2⁻⁷ of the f32 plain gradients'
+     scale) and K4's forward and backward time a step against the bound and
+     the plain version.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
-by path: wsi, strict, slide, embed, eval, patch, robustness), error, times and bound (the least time the card could take: the larger of the bytes
+by path: wsi, strict, slide, embed, eval, patch, robustness, train; K4's
+backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
 """
@@ -456,11 +474,12 @@ def phase_reference(device):
 
 def kernel_counters():
     from nuhtc_tpu_torch.ops.components import component_stats
-    from nuhtc_tpu_torch.ops.roi_align import roi_align
+    from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_sum_backward
     from nuhtc_tpu_torch.ops.window_block import window_attention, window_block
 
     return dict(window_block=window_block, window_attention=window_attention,
-                component_stats=component_stats, roi_align=roi_align)
+                component_stats=component_stats, roi_align=roi_align,
+                roi_align_backward=roi_align_sum_backward)
 
 
 def reset_counts():
@@ -1092,7 +1111,8 @@ def phase_eval(device, tmp):
         f"{det_forwards} detection and {feat_forwards} backbone forwards; "
         f"launches {counts_patch}")
     context = dict(ckpt=ckpt, data=data, release=release, ann_file=ann_file, rgb=rgb,
-                   preds=os.path.join(out_dir, "preds_pannuke.npy"), gt_results=gt_results)
+                   preds=os.path.join(out_dir, "preds_pannuke.npy"), gt_results=gt_results,
+                   subset=sub_file, names=names)
     return counts_eval, counts_patch, context
 
 
@@ -1230,6 +1250,334 @@ def phase_robustness(device, tmp, ctx):
     return counts
 
 
+TRAIN_ITERS = 4  # steps an epoch of phase_train
+TRAIN_BATCH = 8  # samples_per_gpu of the PanNuke config
+PROFILED_STEPS = 3
+
+
+def _train_config(tmp, ctx):
+    """The PanNuke config as it stands, on phase_eval's release: training on
+    its 64 tiles (class-aware sampling), evaluation on the 8-tile subset; a
+    log line every step, a checkpoint and an evaluation every epoch. Without Pillow on this host, ``RandCorrupt``
+    leaves out ``jpeg_compression`` (Pillow's codec), the one corruption of
+    the catalog that needs it; the line says so."""
+    import importlib.util
+
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.data.pipelines import CORRUPTIONS
+
+    seg = os.path.join(os.path.dirname(ctx["rgb"]), "rgb_seg")
+    lines = [f"_base_ = {CONFIG!r}", "log_interval = 1", "checkpoint_interval = 1",
+             "evaluation = dict(interval=1)",
+             "data = " + repr(dict(
+                 train=dict(dataset=dict(ann_file=ctx["ann_file"], img_prefix=ctx["rgb"],
+                                         seg_prefix=seg)),
+                 test=dict(ann_file=ctx["subset"], img_prefix=ctx["rgb"], seg_prefix=seg)))]
+    note = "the train pipeline as the config has it"
+    if importlib.util.find_spec("PIL") is None:
+        pipeline = Config.fromfile(CONFIG).to_dict()["train_pipeline"]
+        for t in pipeline:
+            if t["type"] == "RandCorrupt":
+                t["corruption"] = [n for n in CORRUPTIONS if n != "jpeg_compression"]
+        lines.append("train_pipeline = " + repr(pipeline))
+        note = ("no Pillow on this host: RandCorrupt draws from the other 18 corruptions "
+                "(jpeg_compression needs Pillow's codec)")
+    path = os.path.join(tmp, "train_pannuke.py")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path, note
+
+
+def _train_rows(work):
+    with open(os.path.join(work, "log.json")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if r["mode"] == "train"], [r for r in rows if r["mode"] == "val"]
+
+
+def _k4_backward_work(maps, rois, scales, out_size, ratios, pools, with_bias):
+    """FLOP and bytes of K4's backward on these boxes: the forward's
+    multiply-adds per channel and distinct cell under a bin (one scatter
+    each), grad_out and the boxes read once, each map's gradient and the
+    bias gradient written once."""
+    flops, _ = roi_work(maps, rois, scales, out_size, ratios, pools)
+    b, r = rois.shape[:2]
+    c = maps[0].shape[-1]
+    el = maps[0].element_size()
+    nbytes = (b * r * out_size * out_size * c * el + rois.numel() * 4
+              + sum(m.numel() * el for m in maps) + (b * r * c * 4 if with_bias else 0))
+    return flops, nbytes
+
+
+def phase_train(device, tmp, ctx):
+    """Supervised training through ``python -m nuhtc_tpu_torch.tools.train``
+    (``main(argv)``) at full width: the PanNuke config (Swin-T 96, depths
+    2-2-6-2, FPN 64, 5 classes, B8 of 256² tiles rescaled to 512², bf16
+    autocast) on phase_eval's release through the full train pipeline and
+    ``PrefetchLoader``: (a) two epochs of TRAIN_ITERS steps with a
+    checkpoint and an evaluation of the EMA weights after each; every loss
+    finite; the parameters moved but the frozen stage-0 leaves, bit-equal
+    to their seed-0 start; the EMA moved; launches: 4 K4 forwards, 4 K4
+    backwards and ≥ 1 K3 a step, 12 K1, 4 K4 and ≥ 1 K3 an evaluation
+    forward, no K2; the gradient that K4's backward hands to p2 non-zero;
+    s/step, img/s and the split (loader wait, forward, backward, optimizer +
+    EMA); (b) ``--resume-from`` the epoch-2 checkpoint for a third epoch:
+    the step count and the lr follow on; (c) ``init_detector(checkpoint,
+    use_ema=True)`` and one ``run_batch`` on the card; (d) PROFILED_STEPS
+    steps under torch.profiler: the card's idle share over them, and the
+    peak memory; (e) K4 forward and backward at the four calls of a train
+    step (captured from (a)'s first step) against the plain version (f32:
+    1e-4 of each map's gradient scale; bf16: 2^-7 of the f32 plain
+    gradients' scale), and their times per step against the bound and the
+    plain autograd version. Returns (launches, K4 backward's figures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.data.coco import build_dataset
+    from nuhtc_tpu_torch.data.loader import PrefetchLoader
+    from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
+    from nuhtc_tpu_torch.models import roi_extractor
+    from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
+    from nuhtc_tpu_torch.ops import roi_align as ra
+    from nuhtc_tpu_torch.tools import train as train_tool
+    from nuhtc_tpu_torch.tools.timing import cuda_ms
+    from nuhtc_tpu_torch.train.train_state import (
+        create_train_state, frozen_mask, lr_schedule, make_train_step)
+    from nuhtc_tpu_torch.utils import checkpoint as ckpt
+    from nuhtc_tpu_torch.utils.imageio import read_image
+
+    cfg_path, note = _train_config(tmp, ctx)
+    work = os.path.join(tmp, "train_work")
+    ck_dir = os.path.join(work, "checkpoints")
+    argv = [cfg_path, "--work-dir", work, "--iters-per-epoch", str(TRAIN_ITERS), "--seed", "0"]
+
+    # (a) two epochs; the first step's K4 inputs, and the gradient K4's
+    # backward hands to p2 at every call (a hook on the call's autograd node:
+    # its grad_inputs follow the forward's inputs, rois, bias, spec, p2, ...)
+    captured, p2_grad = [], []
+    plain_sum = roi_extractor.roi_align_sum
+
+    def capturing_sum(maps, rois, *args, **kw):
+        out = plain_sum(maps, rois, *args, **kw)
+        if out.grad_fn is not None:
+            if len(captured) < 4:
+                captured.append(([m.detach().clone() for m in maps], rois.detach().clone(),
+                                 kw["bias"].detach().clone(), args))
+            out.grad_fn.register_hook(
+                lambda grad_in, grad_out: p2_grad.append(grad_in[3].float().abs().max()))
+        return out
+
+    timing = []
+    roi_extractor.roi_align_sum = capturing_sum
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state = train_tool.main(argv + ["--max-epochs", "2"],
+                                trainer_kw=dict(record_timing=timing))
+        torch.cuda.synchronize()
+    finally:
+        roi_extractor.roi_align_sum = plain_sum
+    wall_a = time.perf_counter() - t0
+    counts_a = read_counts()
+    steps = 2 * TRAIN_ITERS
+    evals = 2 * -(-PATCH_TILES // TRAIN_BATCH)
+    ok = (counts_a["roi_align_backward"] == 4 * steps
+          and counts_a["roi_align"] == 4 * (steps + evals)
+          and counts_a["window_block"] == 12 * evals and counts_a["window_attention"] == 0
+          and counts_a["component_stats"] >= steps + evals)
+    if not ok or state.step != steps:
+        raise AssertionError(f"train (a): {state.step} steps, launches {counts_a} for {steps} "
+                             f"steps and {evals} evaluation forwards")
+    p2 = torch.stack(p2_grad).cpu().numpy()
+    if len(p2) != 4 * steps or not np.isfinite(p2).all() or (p2 <= 0).any():
+        raise AssertionError(f"train (a): the gradient K4 hands to p2: {p2}")
+    rows, val_rows = _train_rows(work)
+    loss_keys = [k for k in rows[0] if k.startswith(("loss", "s0.", "s1.", "s2."))]
+    if (len(rows) != steps or len(loss_keys) != 13 or len(val_rows) != 2
+            or not all(np.isfinite(r[k]) for r in rows for k in loss_keys + ["total", "grad_norm"])):
+        raise AssertionError(f"train (a): {len(rows)} train rows, losses {loss_keys}, "
+                             f"{len(val_rows)} val rows")
+    cfg = Config.fromfile(cfg_path)
+    start = build_detector(cfg.model, cfg.model.get("test_cfg"), float(cfg.scale_factor))
+    init_random_weights(start, torch.Generator().manual_seed(0))
+    start = start.state_dict()
+    blob2 = ckpt.read_checkpoint(ck_dir, 2)
+    frozen = frozen_mask(blob2["ema_params"])
+    bad = [k for k, f in frozen.items() if torch.equal(blob2["params"][k], start[k]) != f]
+    ema_moved = sum(not torch.equal(blob2["ema_params"][k], start[k]) for k in frozen)
+    if bad or not ema_moved or sorted(os.listdir(ck_dir)) != ["step_1.pt", "step_2.pt"]:
+        raise AssertionError(f"train (a): leaves that moved though frozen or stayed though "
+                             f"trained: {bad[:6]}; EMA moved in {ema_moved}; "
+                             f"{sorted(os.listdir(ck_dir))}")
+    warm = timing[1:]
+    split = {k: float(np.mean([t[k] for t in warm]))
+             for k in ("loader_wait_s", "forward_s", "backward_s", "optimizer_s")}
+    step_s = sum(split.values())
+    log(f"train ({note}): config {os.path.basename(CONFIG)} at full width, B{TRAIN_BATCH}, "
+        f"512² inputs, bf16 autocast")
+    log(f"train (a) tools.train on {device}: {steps} steps + 2 evaluations + 2 checkpoints in "
+        f"{wall_a:.3f} s; per step (steps 2-{steps}, synchronized) {step_s:.4f} s = "
+        f"{TRAIN_BATCH / step_s:.2f} img/s: loader wait {split['loader_wait_s']:.4f} s, "
+        f"forward {split['forward_s']:.4f} s, backward {split['backward_s']:.4f} s, "
+        f"optimizer + EMA {split['optimizer_s']:.4f} s; the first step "
+        f"{sum(timing[0].values()):.3f} s")
+    log(f"train (a) losses of the last step: " + ", ".join(
+        f"{k} {rows[-1][k]:.4f}" for k in ["total"] + loss_keys) + f", grad_norm "
+        f"{rows[-1]['grad_norm']:.3f}, lr {rows[-1]['lr']:.3e}; eval[ema] pq "
+        f"{val_rows[-1].get('pq', float('nan')):.4f}; {sum(frozen.values())} frozen leaves "
+        f"bit-equal to their start, the other {len(frozen) - sum(frozen.values())} moved, the "
+        f"EMA moved in {ema_moved}; K4's gradient at p2 max |g| {p2.min():.3e}..{p2.max():.3e}; "
+        f"launches {counts_a}")
+
+    # (b) resume from the epoch-2 checkpoint for a third epoch
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train_tool.main(argv + ["--max-epochs", "3", "--resume-from",
+                                    ckpt.checkpoint_file(ck_dir, 2)])
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts_b = read_counts()
+    rows_b, _ = _train_rows(work)
+    sched = lr_schedule(1e-4, 1000, 1e-3, (30, 160), TRAIN_ITERS)
+    if (state.step != blob2["step"] + TRAIN_ITERS or state.opt_state.count != state.step
+            or [(r["epoch"], r["iter"]) for r in rows_b[steps:]] != [
+                (3, i + 1) for i in range(TRAIN_ITERS)]
+            or abs(rows_b[steps]["lr"] - sched(steps)) > 1e-12
+            or counts_b["roi_align_backward"] != 4 * TRAIN_ITERS
+            or ckpt.latest_step(ck_dir) != 3):
+        raise AssertionError(f"train (b): resumed to step {state.step} (count "
+                             f"{state.opt_state.count}), rows {len(rows_b)}, launches {counts_b}")
+    log(f"train (b) --resume-from step_2.pt: steps {blob2['step']} → {state.step}, lr "
+        f"{rows_b[steps]['lr']:.3e} at the first resumed step; {wall_b:.3f} s; launches "
+        f"{counts_b}")
+
+    # (c) the EMA checkpoint through init_detector, one batch on the card
+    reset_counts()
+    engine = init_detector(cfg_path, ck_dir, batch_size=TRAIN_BATCH, use_ema=True)
+    ema3 = ckpt.read_checkpoint(ck_dir)["ema_params"]
+    own = engine.model.state_dict()
+    if any(not torch.equal(own[k].float().cpu(), v.to(own[k].dtype).float()) for k, v in
+           ema3.items()):
+        raise AssertionError("train (c): init_detector(use_ema=True) holds other weights")
+    tiles = [read_image(os.path.join(ctx["rgb"], n)) for n in ctx["names"][:TRAIN_BATCH]]
+    res = engine.run_batch(tiles)
+    torch.cuda.synchronize()
+    counts_c = read_counts()
+    check_counts("train (c)", counts_c, 1, "window_block")
+    if len(res) != TRAIN_BATCH or not all(np.isfinite(r["scores"]).all() and np.isfinite(
+            r["boxes"]).all() for r in res):
+        raise AssertionError("train (c): run_batch on the EMA checkpoint")
+    log(f"train (c) init_detector(step_3 EMA) + run_batch of {TRAIN_BATCH} tiles: "
+        f"{sum(len(r['scores']) for r in res)} detections; launches {counts_c}")
+    del engine
+
+    # (d) PROFILED_STEPS steps under the profiler: idle share and peak memory
+    model = build_detector(cfg.model, cfg.model.get("test_cfg"), float(cfg.scale_factor))
+    model.load_state_dict(ckpt.read_checkpoint(ck_dir)["params"])
+    model = model.to(device)
+    st, tx = create_train_state(model, schedule=lr_schedule(iters_per_epoch=TRAIN_ITERS))
+    step_fn = make_train_step(model, tx, compute_dtype=torch.bfloat16)
+    ds = build_dataset(cfg.data.train)
+    loader = PrefetchLoader(ds, build_train_pipeline(cfg.train_pipeline),
+                            batch_size=TRAIN_BATCH, seed=5)
+    gen = torch.Generator(device=device)
+    it = iter(loader)
+
+    def one_step():
+        batch = {k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
+        gen.manual_seed(st.step)
+        step_fn(st, batch, gen)
+
+    try:
+        one_step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                one_step()
+            torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated(device)
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    log(f"train (d) {PROFILED_STEPS} steps under torch.profiler: {traced:.3f} s, the card's "
+        f"kernels and copies {device_s:.3f} s, idle share {1 - device_s / traced:.3f}; "
+        f"untraced steps (a) {step_s:.4f} s each, idle share against them "
+        f"{1 - device_s / (PROFILED_STEPS * step_s):.3f}; torch.cuda.max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB")
+    del model, st, tx, step_fn
+
+    # (e) K4 forward and backward at the train step's four calls
+    fwd_ms = bwd_ms = plain_fwd_ms = plain_bwd_ms = bound_f = bound_b = 0.0
+    err32 = err16 = 0.0
+    tot = dict(ff=0.0, fb=0.0, bf=0.0, bb=0.0)
+    for maps16, rois, bias, args in captured:
+        scales, out_size, ratios, pools = args
+        shapes = [tuple(m.shape) for m in maps16]
+        gen = torch.Generator(device=device).manual_seed(len(shapes) + out_size)
+        g32 = torch.randn((rois.shape[0], rois.shape[1], out_size, out_size, shapes[0][3]),
+                          generator=gen, device=device)
+        # f32: the kernel's gradients against autograd through the plain version
+        maps32 = [m.float().requires_grad_(True) for m in maps16]
+        b32 = bias.clone().requires_grad_(True)
+        ra.roi_align_sum(maps32, rois, *args, bias=b32).backward(g32)
+        want32, want_b = ra.roi_align_sum_backward_plain(g32, shapes, rois, *args, True)
+        torch.cuda.synchronize()
+        for m, w in zip(maps32, want32):
+            e = (m.grad - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            err32 = max(err32, e)
+        eb = (b32.grad - want_b).abs().max().item() / want_b.abs().max().item()
+        # bf16, as the train step runs it
+        g16 = g32.bfloat16()
+        maps_b = [m.clone().requires_grad_(True) for m in maps16]
+        ra.roi_align_sum(maps_b, rois, *args, bias=bias).backward(g16)
+        ref, _ = ra.roi_align_sum_backward_plain(g16.float(), shapes, rois, *args, True)
+        torch.cuda.synchronize()
+        e16 = 0.0
+        for m, w in zip(maps_b, ref):
+            scale = w.abs().max().item()
+            e16 = max(e16, (m.grad.float() - w).abs().max().item() / scale)
+        if err32 > 1e-4 or eb > 1e-4 or e16 > 2.0 ** -7:
+            raise AssertionError(f"K4 backward at the train step's shapes: f32 err {err32} (of "
+                                 f"each map's scale), bias {eb}, bf16 err {e16}")
+        err16 = max(err16, e16)
+        t_f = cuda_ms(lambda: ra.roi_align_sum(maps16, rois, *args, bias=bias))
+        t_b = cuda_ms(lambda: ra.roi_align_sum_backward(g16, shapes, rois, *args, True))
+        t_pf = cuda_ms(lambda: ra.roi_align_sum_plain(maps16, rois, *args, bias=bias),
+                       rounds=3, inner=2)
+        t_pb = cuda_ms(lambda: ra.roi_align_sum_backward_plain(g16, shapes, rois, *args, True),
+                       rounds=3, inner=2)
+        ff, fbytes = roi_work(maps16, rois, *args, bias=bias)
+        bf, bbytes = _k4_backward_work(maps16, rois, *args, True)
+        fwd_ms, bwd_ms = fwd_ms + t_f, bwd_ms + t_b
+        plain_fwd_ms, plain_bwd_ms = plain_fwd_ms + t_pf, plain_bwd_ms + t_pb
+        bound_f += bound_ms(ff, PEAK_F32, fbytes)[0]
+        bound_b += bound_ms(bf, PEAK_F32, bbytes)[0]
+        tot["ff"], tot["fb"] = tot["ff"] + ff, tot["fb"] + fbytes
+        tot["bf"], tot["bb"] = tot["bf"] + bf, tot["bb"] + bbytes
+        log(f"K4 at a train-step call (B{rois.shape[0]} R{rois.shape[1]} out {out_size}, maps "
+            f"{[s[1:3] for s in shapes]}): backward f32 err {err32:.2e} of the gradient scale "
+            f"(bias {eb:.2e}), bf16 {e16:.5f} (allowed {2.0 ** -7:.5f}); forward {t_f:.3f} ms "
+            f"(plain {t_pf:.3f}), backward {t_b:.3f} ms (plain autograd {t_pb:.3f})")
+    by_f = bound_ms(tot["ff"], PEAK_F32, tot["fb"])[1]
+    by_b = bound_ms(tot["bf"], PEAK_F32, tot["bb"])[1]
+    log(f"K4 per train step ({len(captured)} calls): forward {fwd_ms:.3f} ms, bound "
+        f"{bound_f:.4f} ms ({by_f}), plain {plain_fwd_ms:.3f} ms; backward {bwd_ms:.3f} ms, "
+        f"bound {bound_b:.4f} ms ({by_b}: {tot['bb'] / 1e6:.1f} MB, {tot['bf'] / 1e9:.2f} "
+        f"GFLOP), plain autograd {plain_bwd_ms:.3f} ms. Library call: none (torchvision's "
+        f"roi_align takes one map and is not on this host)")
+    if len(captured) != 4:
+        raise AssertionError(f"train (e): captured {len(captured)} K4 calls of a step")
+    counts = {k: counts_a[k] + counts_b[k] for k in counts_a}
+    return counts, dict(max_abs_err=err16, max_abs_err_f32=err32, ms=bwd_ms,
+                        plain_ms=plain_bwd_ms, bound_ms=bound_b, bound_by=by_b,
+                        forward_ms=fwd_ms, forward_bound_ms=bound_f)
+
+
 def main() -> int:
     try:
         import torch
@@ -1277,8 +1625,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         evaluation, patch, context = phase_eval(device, tmp)
         robustness = phase_robustness(device, tmp, context)
+        train, k4_backward = phase_train(device, tmp, context)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
-                 robustness=robustness)
+                 robustness=robustness, train=train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4
@@ -1293,6 +1642,9 @@ def main() -> int:
         entry("window_attention", "window_block.cu", f"{pallas}:128", k2),
         entry("component_stats", "component_stats.cu", "nuhtc_tpu/ops/components_pallas.py:98", k3),
         entry("roi_align", "roi_align.cu", "nuhtc_tpu/ops/roi_align_pallas.py:126", k4),
+        # the JAX package trains through XLA's autodiff of its exact RoIAlign
+        entry("roi_align_backward", "roi_align.cu", "nuhtc_tpu/ops/roi_align.py:276",
+              k4_backward),
     ]
     if any(k["launches"] < 1 for k in kernels_line):
         raise AssertionError(f"a kernel was never launched on the main paths: {kernels_line}")

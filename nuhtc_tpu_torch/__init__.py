@@ -1,5 +1,5 @@
-"""NuHTC on PyTorch and CUDA: the patch-inference, whole-slide and
-dataset-evaluation paths of ``nuhtc_tpu`` ported to an NVIDIA H100, with
-hand-written Hopper kernels (``csrc/``) in place of the JAX package's Pallas
-kernels. Imports ``torch``, never ``jax``.
+"""NuHTC on PyTorch and CUDA: the patch-inference, whole-slide,
+dataset-evaluation and supervised-training paths of ``nuhtc_tpu`` ported to
+an NVIDIA H100, with hand-written Hopper kernels (``csrc/``) in place of the
+JAX package's Pallas kernels. Imports ``torch``, never ``jax``.
 """

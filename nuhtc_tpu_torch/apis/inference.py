@@ -243,11 +243,14 @@ def init_detector(config: str | Config, checkpoint: Optional[str] = None,
                   device: Optional[str | torch.device] = None,
                   device_preprocess: bool = False, compact_masks: bool = False,
                   scale_factor: Optional[float] = None, tile_size: int = 256,
-                  swin_kernel: str = "block") -> InferenceEngine:
+                  swin_kernel: str = "block", use_ema: bool = True) -> InferenceEngine:
     """``device`` None means the first CUDA device, and raises when there is
     none: the CPU is taken only when asked for (``device="cpu"``). ``dtype``
-    defaults to bf16 on CUDA and f32 on the CPU. Without a checkpoint the
-    weights are random, from seed 0. ``scale_factor`` overrides the config's
+    defaults to bf16 on CUDA and f32 on the CPU. ``checkpoint``: a reference
+    (mmdet-named) ``.pth``, or a checkpoint of the port's trainer (a
+    ``step_<n>.pt`` file or its directory, whose newest step is read), whose
+    EMA weights are taken when ``use_ema`` and the raw ones otherwise.
+    Without a checkpoint the weights are random, from seed 0. ``scale_factor`` overrides the config's
     test rescale; it is baked into the model so boxes come back in the tile
     frame. ``swin_kernel``: the Swin block's kernel tier on CUDA, "block"
     (K1), "attn" (K2) or "none"."""
@@ -262,7 +265,12 @@ def init_detector(config: str | Config, checkpoint: Optional[str] = None,
     model = build_detector(cfg.model, cfg.model.get("test_cfg"), scale_factor,
                            swin_kernel=swin_kernel)
     if checkpoint:
-        load_reference_checkpoint(model, checkpoint)
+        from nuhtc_tpu_torch.utils import checkpoint as ckpt
+
+        if ckpt.is_train_checkpoint(checkpoint):
+            model.load_state_dict(ckpt.checkpoint_state_dict(checkpoint, use_ema), strict=True)
+        else:
+            load_reference_checkpoint(model, checkpoint)
     else:
         init_random_weights(model, torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=dtype).eval()

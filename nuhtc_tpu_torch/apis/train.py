@@ -1,0 +1,59 @@
+"""Train API (port of nuhtc_tpu/apis/train.py; reference nuhtc/apis/train.py:
+``set_random_seed``, ``train_detector``)."""
+
+from __future__ import annotations
+
+import random
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def set_random_seed(seed: int, deterministic: bool = False) -> int:
+    """Seeds Python, numpy and torch; ``deterministic`` also sets
+    ``torch.use_deterministic_algorithms(True)`` (``warn_only``: an op
+    without a deterministic implementation warns instead of raising; cuBLAS
+    gets the workspace setting it needs for that). K4's backward still adds
+    with f32 atomics, in no fixed order: its sums, and what follows from
+    them, may differ in their last bits from run to run."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    if deterministic:
+        import os
+
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.benchmark = False
+    return seed
+
+
+def train_detector(model, dataset, cfg, work_dir: str, test_dataset=None,
+                   resume_from: Optional[str] = None, seed: int = 0,
+                   compute_dtype: Optional[torch.dtype] = None, **trainer_kw):
+    """The loader and ``Trainer`` as tools/train.py builds them:
+    ``samples_per_gpu`` from the config (or ``data.samples_per_gpu``),
+    iterations per epoch from the dataset's size. ``model``: a NuHTC module
+    on its device, f32; ``compute_dtype``: bf16 on the card. Returns the
+    final train state."""
+    from nuhtc_tpu_torch.data.loader import PrefetchLoader, SemiDataset
+    from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
+    from nuhtc_tpu_torch.train.trainer import Trainer
+
+    if isinstance(dataset, SemiDataset):
+        raise NotImplementedError("train_detector: semi-supervised datasets wait for the port "
+                                  "of the semi path (ROADMAP Queue 1 item 14)")
+    pipeline = build_train_pipeline(cfg.get("train_pipeline", []))
+    batch_size = cfg.get("samples_per_gpu", None) or cfg.get("data", {}).get(
+        "samples_per_gpu", 8)
+    loader = PrefetchLoader(dataset, pipeline, batch_size=batch_size, seed=seed)
+    trainer_kw.setdefault("max_epochs", cfg.get("max_epochs", 200))
+    trainer_kw.setdefault("iters_per_epoch", max(len(dataset) // batch_size, 1))
+    trainer_kw.setdefault("checkpoint_interval", cfg.get("checkpoint_interval", 10))
+    trainer_kw.setdefault("eval_interval", cfg.get("evaluation", {}).get("interval", 10))
+    trainer = Trainer(model, cfg, work_dir, seed=seed, compute_dtype=compute_dtype, **trainer_kw)
+    try:
+        return trainer.run(loader, test_dataset, resume_from=resume_from)
+    finally:
+        loader.close()

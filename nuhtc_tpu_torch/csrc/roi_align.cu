@@ -68,6 +68,25 @@
 //   are one sixteenth large, but the small RoIs' idle blocks cost a launch
 //   without large boxes a tenth, and a forward has few large boxes). Not
 //   tried: a block's warps sharing a bin's rows of cells.
+//
+// The backward (roi_align_sum_backward_launch) is the same sum read the other
+// way. In the JAX package this gradient is XLA's autodiff of the exact or
+// banded RoIAlign of nuhtc_tpu/ops/roi_align.py:276 (the Pallas kernel never
+// trains). For every map
+//   grad_map[b, y, x, c] = sum over RoIs, bins and samples of
+//                          w(sample, cell) * grad_out[b, r, i, j, c]
+// with the forward's geometry (the same cell lists), and
+//   grad_bias[b, r, c] = sum over bins of grad_out[b, r, i, j, c].
+// Gradients of the boxes are not taken: the detector feeds detached boxes.
+// What bounds it: bytes again (grad_out read once, each map's gradient
+// written once), but what it spends is atomics: one block per RoI, a thread
+// per (bin, channel group) as in the forward, and every cell under a bin takes
+// its VEC channels in float4 atomicAdds (sm_90's vector atomics; scalar ones
+// cost four times as long at the train step's shapes) into one f32 buffer per
+// map, which the L2 resolves. A second pass rounds a bf16 map's buffer once
+// to bf16. The bias gradient sums in shared memory and is stored once per
+// RoI. Atomics add in no fixed order, so the f32 sums change in their last
+// bits from run to run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -349,6 +368,164 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// VEC f32 adds of w * g into dst: float4 atomics (sm_90 has them in global
+// memory) when VEC is a multiple of 4, which puts dst on 16 bytes; scalar
+// ones otherwise.
+template <int VEC>
+__device__ __forceinline__ void scatter_add(float* dst, float w, const float* g) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q)
+      atomicAdd(reinterpret_cast<float4*>(dst) + q,
+                make_float4(w * g[4 * q], w * g[4 * q + 1], w * g[4 * q + 2], w * g[4 * q + 3]));
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) atomicAdd(dst + v, w * g[v]);
+  }
+}
+
+// The backward's arguments: map[l].feat is map l's f32 gradient buffer
+// (B, H, W, C), zeroed by the caller; grad_out (B, R, out, out, C) in the
+// maps' type; grad_bias (B, R, C) f32 or null.
+struct BwdArgs {
+  MapArg map[MAX_MAPS];
+  const float* rois;
+  const void* grad_out;
+  float* grad_bias;
+  int n_maps, R, C, out_size, max_grid;
+  int total_ent;
+};
+
+// One block per RoI, blockIdx.x = b * R + r; a thread owns bin (i, j) and
+// channels [cg*VEC, cg*VEC + VEC) of grad_out, reads them once and adds
+// weight * value into every cell of every map under that bin. Shared memory:
+// the cell lists (byte offsets into the f32 buffers), their lengths, and C
+// floats of the RoI's bias gradient.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS) roi_align_sum_backward_kernel(
+    const __grid_constant__ BwdArgs a) {
+  extern __shared__ float2 ent[];
+  const int out_size = a.out_size, C = a.C;
+  const int lists = a.n_maps * 2 * out_size;
+  int* count = reinterpret_cast<int*>(ent + a.total_ent);
+  float* sbias = reinterpret_cast<float*>(count + lists);
+  const long long roi = blockIdx.x;
+  const int b = (int)(roi / a.R);
+
+  const float* box = a.rois + roi * 4;
+  const int cell_bytes = C * (int)sizeof(float);
+  for (int t = threadIdx.x; t < lists; t += blockDim.x) {
+    const int l = t / (2 * out_size), rem = t - l * 2 * out_size;
+    const int axis = rem >= out_size, i = rem - axis * out_size;
+    const MapArg& m = a.map[l];
+    count[t] = bin_cells(ent + m.ent_base + rem * m.ent_cap, box[1 - axis], box[3 - axis], m.scale,
+                         i, axis ? m.W : m.H, axis ? cell_bytes : m.W * cell_bytes, out_size,
+                         m.sampling_ratio, a.max_grid, m.pool_from);
+  }
+  if (a.grad_bias)
+    for (int c = threadIdx.x; c < C; c += blockDim.x) sbias[c] = 0.0f;
+  __syncthreads();
+
+  const T* src = static_cast<const T*>(a.grad_out) + roi * out_size * out_size * C;
+  const int groups = C / VEC;
+  const int items = out_size * out_size * groups;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int cg = it % groups, bin = it / groups;
+    const int i = bin / out_size, j = bin - i * out_size;
+    const int c0 = cg * VEC;
+    float g[VEC];
+    Pack<T, VEC>::load(src + ((long long)bin * C + c0), g);
+    if (a.grad_bias) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) atomicAdd(sbias + c0 + v, g[v]);
+    }
+#pragma unroll
+    for (int l = 0; l < MAX_MAPS; ++l) {
+      if (l < a.n_maps) {
+        const MapArg& m = a.map[l];
+        const float2* ey = ent + m.ent_base + i * m.ent_cap;
+        const float2* ex = ent + m.ent_base + (out_size + j) * m.ent_cap;
+        const int ny = count[l * 2 * out_size + i], nx = count[l * 2 * out_size + out_size + j];
+        char* base = static_cast<char*>(const_cast<void*>(m.feat)) +
+                     (size_t)b * m.H * m.W * C * sizeof(float);
+        const unsigned c0_bytes = c0 * (unsigned)sizeof(float);
+        for (int y = 0; y < ny; ++y) {
+          const float2 cy = ey[y];
+          const unsigned row = __float_as_uint(cy.y) + c0_bytes;
+          for (int x = 0; x < nx; ++x) {
+            const float2 cx = ex[x];
+            const float w = cy.x * cx.x;
+            scatter_add<VEC>(reinterpret_cast<float*>(base + (row + __float_as_uint(cx.y))), w, g);
+          }
+        }
+      }
+    }
+  }
+  if (a.grad_bias) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) a.grad_bias[roi * C + c] = sbias[c];
+  }
+}
+
+// The one rounding of a bf16 map's f32 gradient buffer.
+__global__ void round_bf16_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
+                                  long long n) {
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < n;
+       k += (long long)gridDim.x * blockDim.x)
+    dst[k] = __float2bfloat16(src[k]);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_backward(const BwdArgs& a, int B, cudaStream_t stream) {
+  const int lists = a.n_maps * 2 * a.out_size;
+  const size_t smem_bytes =
+      (size_t)a.total_ent * sizeof(float2) + lists * sizeof(int) + a.C * sizeof(float);
+  if (smem_bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(roi_align_sum_backward_kernel<T, VEC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int items = a.out_size * a.out_size * (a.C / VEC);
+  const int threads = max(64, min((items + 31) / 32 * 32, MAX_THREADS));
+  const unsigned grid = (unsigned)((long long)B * a.R);
+  roi_align_sum_backward_kernel<T, VEC><<<grid, threads, smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Fills the MapArg entries of n_maps maps from the host arrays (as the
+// forward's entry point reads them) and their list layout; returns the
+// total of entries, or -1 on arguments the kernels do not take.
+long long map_layout(MapArg* map, const void* const* ptrs, const int* dims, const float* scales,
+                     int n_maps, int C, int out_size, int max_grid, int elem_bytes) {
+  long long total_ent = 0;
+  for (int l = 0; l < n_maps; ++l) {
+    MapArg& m = map[l];
+    m.feat = ptrs[l];
+    m.H = dims[4 * l];
+    m.W = dims[4 * l + 1];
+    m.sampling_ratio = dims[4 * l + 2];
+    m.pool_from = dims[4 * l + 3];
+    m.scale = scales[l];
+    if (m.H <= 0 || m.W <= 0 || m.sampling_ratio < 0 || m.pool_from < 0 ||
+        (long long)m.H * m.W * C * elem_bytes > 0x7fffffffLL)  // 32-bit byte offsets
+      return -1;
+    if (m.pool_from != 0 && (m.pool_from % out_size != 0 || m.sampling_ratio != 0)) return -1;
+    const long long grid_max = m.pool_from ? (long long)(m.pool_from / out_size) * max_grid
+                                           : (m.sampling_ratio ? m.sampling_ratio : max_grid);
+    // a list holds at most two cells per sample; the odd length keeps
+    // neighbouring bins' lists on different banks
+    const long long cap = 2 * grid_max + 1;
+    if (total_ent + 2 * out_size * cap > (1 << 20)) return -1;
+    m.ent_base = (int)total_ent;
+    m.ent_cap = (int)cap;
+    total_ent += 2 * out_size * cap;
+  }
+  for (int l = n_maps; l < MAX_MAPS; ++l) map[l] = map[0];
+  return total_ent;
+}
+
 }  // namespace
 
 // Host arrays of n_maps entries: feats (device pointers to (B, H, W, C)
@@ -376,34 +553,13 @@ extern "C" int roi_align_sum_launch(const void* const* feats, const int* dims, c
   a.C = C;
   a.out_size = out_size;
   a.max_grid = max_grid;
+  const long long total_ent =
+      map_layout(a.map, feats, dims, scales, n_maps, C, out_size, max_grid, is_bf16 ? 2 : 4);
+  if (total_ent < 0) return (int)cudaErrorInvalidValue;
   bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  long long total_ent = 0;
-  for (int l = 0; l < n_maps; ++l) {
-    MapArg& m = a.map[l];
-    m.feat = feats[l];
-    m.H = dims[4 * l];
-    m.W = dims[4 * l + 1];
-    m.sampling_ratio = dims[4 * l + 2];
-    m.pool_from = dims[4 * l + 3];
-    m.scale = scales[l];
-    if (m.H <= 0 || m.W <= 0 || m.sampling_ratio < 0 || m.pool_from < 0 ||
-        (long long)m.H * m.W * C * (is_bf16 ? 2 : 4) > 0x7fffffffLL)  // 32-bit byte offsets
-      return (int)cudaErrorInvalidValue;
-    if (m.pool_from != 0 && (m.pool_from % out_size != 0 || m.sampling_ratio != 0))
-      return (int)cudaErrorInvalidValue;
-    const long long grid_max = m.pool_from ? (long long)(m.pool_from / out_size) * max_grid
-                                           : (m.sampling_ratio ? m.sampling_ratio : max_grid);
-    // a list holds at most two cells per sample; the odd length keeps
-    // neighbouring bins' lists on different banks
-    const long long cap = 2 * grid_max + 1;
-    if (total_ent + 2 * out_size * cap > (1 << 20)) return (int)cudaErrorInvalidValue;
-    m.ent_base = (int)total_ent;
-    m.ent_cap = (int)cap;
-    total_ent += 2 * out_size * cap;
-    aligned = aligned && reinterpret_cast<uintptr_t>(m.feat) % 16 == 0;
-  }
-  for (int l = n_maps; l < MAX_MAPS; ++l) a.map[l] = a.map[0];
+  for (int l = 0; l < n_maps; ++l)
+    aligned = aligned && reinterpret_cast<uintptr_t>(feats[l]) % 16 == 0;
   a.total_ent = (int)total_ent;
   cudaError_t err;
   if (is_bf16) {
@@ -412,4 +568,54 @@ extern "C" int roi_align_sum_launch(const void* const* feats, const int* dims, c
     err = (aligned && C % 4 == 0) ? launch<float, 4>(a, B, s) : launch<float, 1>(a, B, s);
   }
   return (int)err;
+}
+
+// K4's backward. Host arrays of n_maps entries: grad_f32 (device pointers to
+// zeroed (B, H, W, C) f32 buffers, one per map), grad_out_maps (for bf16 maps
+// the (B, H, W, C) bf16 gradients the buffers are rounded into; ignored for
+// f32 maps, whose gradient is the buffer), dims and scales as the forward
+// takes them. rois (B, R, 4) f32, grad_out (B, R, out, out, C) in the maps'
+// type, grad_bias (B, R, C) f32 or null. Returns a cudaError_t code.
+extern "C" int roi_align_sum_backward_launch(void* const* grad_f32, void* const* grad_out_maps,
+                                             const int* dims, const float* scales, int n_maps,
+                                             const void* rois, const void* grad_out,
+                                             void* grad_bias, int B, int R, int C, int out_size,
+                                             int max_grid, int is_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (n_maps < 1 || n_maps > MAX_MAPS || B <= 0 || R <= 0 || C <= 0 || out_size <= 0 ||
+      max_grid <= 0 || (long long)B * R > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.rois = static_cast<const float*>(rois);
+  a.grad_out = grad_out;
+  a.grad_bias = static_cast<float*>(grad_bias);
+  a.n_maps = n_maps;
+  a.R = R;
+  a.C = C;
+  a.out_size = out_size;
+  a.max_grid = max_grid;
+  const long long total_ent = map_layout(a.map, reinterpret_cast<const void* const*>(grad_f32),
+                                         dims, scales, n_maps, C, out_size, max_grid, 4);
+  if (total_ent < 0) return (int)cudaErrorInvalidValue;
+  a.total_ent = (int)total_ent;
+  const bool aligned = reinterpret_cast<uintptr_t>(grad_out) % 16 == 0;
+  cudaError_t err;
+  if (is_bf16) {
+    err = (aligned && C % 8 == 0) ? launch_backward<bf16, 8>(a, B, s)
+                                  : launch_backward<bf16, 1>(a, B, s);
+  } else {
+    err = (aligned && C % 4 == 0) ? launch_backward<float, 4>(a, B, s)
+                                  : launch_backward<float, 1>(a, B, s);
+  }
+  if (err != cudaSuccess || !is_bf16) return (int)err;
+  for (int l = 0; l < n_maps; ++l) {
+    const long long n = (long long)B * dims[4 * l] * dims[4 * l + 1] * C;
+    const long long want = (n + 255) / 256;
+    const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+    round_bf16_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(grad_f32[l]),
+                                            static_cast<bf16*>(grad_out_maps[l]), n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -1,7 +1,16 @@
-"""Host-side test-time preprocessing (port of nuhtc_tpu/data/pipelines.py
-``preprocess_test_image``): Resize ×scale_factor, Normalize, Pad(size_divisor);
-and the image-corruption catalog of that module (``CORRUPTIONS``,
-``CORRUPTION_GROUPS``), which the robustness run applies.
+"""Host-side pipelines (port of nuhtc_tpu/data/pipelines.py): test-time
+preprocessing (``preprocess_test_image``: Resize ×scale_factor, Normalize,
+Pad(size_divisor)); the image-corruption catalog (``CORRUPTIONS``,
+``CORRUPTION_GROUPS``), which the robustness run and ``RandCorrupt`` apply;
+and the train transforms the shipped configs use (PhotoMetricDistortion,
+Resize, RandomFlip, RandTranslate/RandRotate/RandShear + RecomputeBox,
+OneOf, Sequential, ShuffledSequential, RandCorrupt, RandPosterize,
+Normalize, Pad, SegRescale), built by name from a config's
+``train_pipeline`` (``build_train_pipeline``) and run with one
+``np.random.RandomState`` (``run_pipeline``), drawing as the JAX package
+draws. The other train transforms of that module (AutoContrast …
+RandErase, Resize_Scale, SmartResize, the crops, FOVCrop, MultiBranch) are
+not ported yet; a config that names one raises KeyError.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``. The port
 needs no OpenCV: ``resize_linear_u8`` reproduces that resize for uint8 images
@@ -12,10 +21,14 @@ nearest).
 
 from __future__ import annotations
 
+import math
+from typing import List, Optional, Sequence
+
 import numpy as np
 
 from nuhtc_tpu_torch.ops import imgproc
 from nuhtc_tpu_torch.ops.contours import circle
+from nuhtc_tpu_torch.registry import PIPELINES
 
 # reference img_norm_cfg (RGB)
 IMG_NORM = dict(mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375))
@@ -324,3 +337,342 @@ CORRUPTION_GROUPS["benchmark"] = (
     + CORRUPTION_GROUPS["weather"] + CORRUPTION_GROUPS["digital"]
 )
 CORRUPTION_GROUPS["all"] = CORRUPTION_GROUPS["benchmark"] + CORRUPTION_GROUPS["holdout"]
+
+
+# --------------------------------------------------------------------------- #
+# train transforms: a ``results`` dict of img (H, W, 3) RGB f32, gt_bboxes
+# (N, 4), gt_labels (N,), gt_masks (N, H, W) u8, gt_semantic_seg (H, W) u8;
+# each OpenCV call of the JAX package is its numpy version in ops/imgproc.py
+# --------------------------------------------------------------------------- #
+@PIPELINES.register()
+class PhotoMetricDistortion:
+    """Random brightness, contrast, saturation and hue (mmdet semantics)."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=9):
+        self.bd = brightness_delta
+        self.cl, self.cu = contrast_range
+        self.sl, self.su = saturation_range
+        self.hd = hue_delta
+
+    def __call__(self, results, rng: np.random.RandomState):
+        img = results["img"].astype(np.float32)
+        if rng.randint(2):
+            img += rng.uniform(-self.bd, self.bd)
+        mode = rng.randint(2)
+        if mode == 1 and rng.randint(2):
+            img *= rng.uniform(self.cl, self.cu)
+        # the coin flips first; the uint8 HSV round trip only when one fires
+        do_sat = rng.randint(2)
+        sat = rng.uniform(self.sl, self.su) if do_sat else 1.0
+        do_hue = rng.randint(2)
+        hue = rng.uniform(-self.hd, self.hd) if do_hue else 0.0
+        if do_sat or do_hue:
+            hsv = imgproc.rgb_to_hsv_u8(np.clip(img, 0, 255).astype(np.uint8)).astype(np.float32)
+            if do_sat:
+                hsv[..., 1] *= sat
+            if do_hue:
+                hsv[..., 0] = (hsv[..., 0] + hue) % 180
+            img = imgproc.hsv_to_rgb_u8(np.clip(hsv, 0, 255).astype(np.uint8)).astype(np.float32)
+        if mode == 0 and rng.randint(2):
+            img *= rng.uniform(self.cl, self.cu)
+        results["img"] = np.clip(img, 0, 255)
+        return results
+
+
+@PIPELINES.register()
+class Resize:
+    def __init__(self, img_scale=(512, 512), keep_ratio=True):
+        self.img_scale = img_scale
+        self.keep_ratio = keep_ratio
+
+    def __call__(self, results, rng=None, img_scale=None):
+        img_scale = img_scale if img_scale is not None else self.img_scale
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.keep_ratio:
+            scale = min(img_scale[0] / h, img_scale[1] / w)
+            nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+        else:
+            nh, nw = img_scale
+        sy, sx = nh / h, nw / w
+        results["img"] = imgproc.resize_linear_f32(img.astype(np.float32), (nh, nw))
+        results["scale_factor"] = np.array([sx, sy, sx, sy], np.float32)
+        if "gt_bboxes" in results and len(results["gt_bboxes"]):
+            results["gt_bboxes"] = results["gt_bboxes"] * results["scale_factor"]
+        if "gt_masks" in results and len(results["gt_masks"]):
+            results["gt_masks"] = np.stack(
+                [imgproc.resize_nearest(m, (nh, nw)) for m in results["gt_masks"]])
+        if results.get("gt_semantic_seg") is not None:
+            results["gt_semantic_seg"] = imgproc.resize_nearest(results["gt_semantic_seg"],
+                                                                 (nh, nw))
+        return results
+
+
+@PIPELINES.register()
+class RandomFlip:
+    def __init__(self, flip_ratio=0.5, direction=("horizontal", "vertical", "diagonal")):
+        self.flip_ratio = flip_ratio
+        self.direction = [direction] if isinstance(direction, str) else list(direction)
+
+    def __call__(self, results, rng: np.random.RandomState):
+        if rng.rand() >= self.flip_ratio:
+            return results
+        d = self.direction[rng.randint(len(self.direction))]
+        h, w = results["img"].shape[:2]
+
+        def flip(x):
+            if d == "horizontal":
+                return np.ascontiguousarray(x[:, ::-1])
+            if d == "vertical":
+                return np.ascontiguousarray(x[::-1])
+            return np.ascontiguousarray(x[::-1, ::-1])
+
+        results["img"] = flip(results["img"])
+        if results.get("gt_semantic_seg") is not None:
+            results["gt_semantic_seg"] = flip(results["gt_semantic_seg"])
+        if "gt_masks" in results and len(results["gt_masks"]):
+            results["gt_masks"] = np.stack([flip(m) for m in results["gt_masks"]])
+        if "gt_bboxes" in results and len(results["gt_bboxes"]):
+            b = results["gt_bboxes"].copy()
+            if d in ("horizontal", "diagonal"):
+                b[:, [0, 2]] = w - results["gt_bboxes"][:, [2, 0]]
+                results["gt_bboxes"] = b.copy()
+            if d in ("vertical", "diagonal"):
+                b = results["gt_bboxes"].copy()
+                b[:, [1, 3]] = h - results["gt_bboxes"][:, [3, 1]]
+                results["gt_bboxes"] = b
+        return results
+
+
+def _warp_all(results, mat: np.ndarray, seg_ignore_label: int = 0):
+    """A 2×3 affine on the image (bilinear), the semantic map (nearest,
+    ``seg_ignore_label`` outside) and the masks (nearest, 0 outside); the
+    boxes are recomputed by RecomputeBox."""
+    img = results["img"]
+    h, w = img.shape[:2]
+    results["img"] = imgproc.warp_affine(img.astype(np.float32), mat, (w, h))
+    if results.get("gt_semantic_seg") is not None:
+        results["gt_semantic_seg"] = imgproc.warp_affine_nearest(
+            results["gt_semantic_seg"], mat, (w, h), border_value=seg_ignore_label)
+    if "gt_masks" in results and len(results["gt_masks"]):
+        results["gt_masks"] = np.stack(
+            [imgproc.warp_affine_nearest(m, mat, (w, h)) for m in results["gt_masks"]])
+    return results
+
+
+@PIPELINES.register()
+class RandTranslate:
+    def __init__(self, x=None, y=None, seg_ignore_label=0):
+        self.x, self.y, self.ignore = x, y, seg_ignore_label
+
+    def __call__(self, results, rng: np.random.RandomState):
+        h, w = results["img"].shape[:2]
+        tx = rng.uniform(*self.x) * w if self.x else 0.0
+        ty = rng.uniform(*self.y) * h if self.y else 0.0
+        return _warp_all(results, np.float32([[1, 0, tx], [0, 1, ty]]), self.ignore)
+
+
+@PIPELINES.register()
+class RandRotate:
+    def __init__(self, angle=(-10, 10), seg_ignore_label=0):
+        self.angle, self.ignore = angle, seg_ignore_label
+
+    def __call__(self, results, rng: np.random.RandomState):
+        h, w = results["img"].shape[:2]
+        mat = imgproc.get_rotation_matrix_2d((w / 2, h / 2), rng.uniform(*self.angle), 1.0)
+        return _warp_all(results, mat.astype(np.float32), self.ignore)
+
+
+@PIPELINES.register()
+class RandShear:
+    def __init__(self, x=None, y=None, seg_ignore_label=0):
+        self.x, self.y, self.ignore = x, y, seg_ignore_label
+
+    def __call__(self, results, rng: np.random.RandomState):
+        sx = math.tan(math.radians(rng.uniform(*self.x))) if self.x else 0.0
+        sy = math.tan(math.radians(rng.uniform(*self.y))) if self.y else 0.0
+        return _warp_all(results, np.float32([[1, sx, 0], [sy, 1, 0]]), self.ignore)
+
+
+@PIPELINES.register()
+class RecomputeBox:
+    """Boxes from the warped masks; instances whose mask emptied are dropped
+    from every per-instance array; box-only trailing instances (fewer masks
+    than boxes) keep their boxes."""
+
+    def __call__(self, results, rng=None):
+        masks = results.get("gt_masks")
+        if masks is None or len(masks) == 0:
+            return results
+        n_masked = len(masks)
+        keep, boxes = [], []
+        for i, m in enumerate(masks):
+            ys, xs = np.nonzero(m)
+            if len(xs) == 0:
+                continue
+            keep.append(i)
+            boxes.append([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+        keep = np.asarray(keep, np.int64)
+        n_orig = len(results["gt_bboxes"])
+        tail = np.arange(n_masked, n_orig, dtype=np.int64)
+        keep_all = np.concatenate([keep, tail])
+        results["gt_masks"] = masks[keep] if len(keep) else masks[:0]
+        new_boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        results["gt_bboxes"] = np.concatenate(
+            [new_boxes, results["gt_bboxes"][tail]], axis=0).astype(np.float32)
+        results["gt_labels"] = results["gt_labels"][keep_all]
+        if "ismask" in results and results["ismask"] is not None \
+                and len(results["ismask"]) == n_orig:
+            results["ismask"] = np.asarray(results["ismask"])[keep_all]
+        return results
+
+
+@PIPELINES.register()
+class OneOf:
+    def __init__(self, transforms: Sequence, rng_build=None):
+        self.transforms = [build_transform(t) for t in transforms]
+
+    def __call__(self, results, rng: np.random.RandomState):
+        t = self.transforms[rng.randint(len(self.transforms))]
+        if isinstance(t, list):
+            for tt in t:
+                results = tt(results, rng)
+            return results
+        return t(results, rng)
+
+
+@PIPELINES.register()
+class Sequential:
+    def __init__(self, transforms: Sequence, record=False):
+        self.transforms = [build_transform(t) for t in transforms]
+
+    def __call__(self, results, rng: np.random.RandomState):
+        for t in self.transforms:
+            results = t(results, rng)
+        return results
+
+
+@PIPELINES.register()
+class ShuffledSequential(Sequential):
+    def __call__(self, results, rng: np.random.RandomState):
+        for i in rng.permutation(len(self.transforms)):
+            results = self.transforms[i](results, rng)
+        return results
+
+
+@PIPELINES.register()
+class RandCorrupt:
+    """One corruption of the catalog at probability ``prob`` (reference
+    rand_aug.py:979): ``corruption`` None (every type), a name or a list;
+    ``severity`` an int or a (lo, hi) range."""
+
+    def __init__(self, prob=0.5, severity=1, corruption=None, corruptions=None):
+        self.prob = prob
+        self.severity = (severity, severity) if isinstance(severity, int) else tuple(severity)
+        names = corruption if corruption is not None else corruptions
+        if isinstance(names, str):
+            names = [names]
+        self.names = [n for n in (names or CORRUPTIONS) if n in CORRUPTIONS]
+
+    def __call__(self, results, rng: np.random.RandomState):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255).astype(np.uint8)
+        sev = rng.randint(self.severity[0], self.severity[1] + 1)
+        name = self.names[rng.randint(len(self.names))]
+        img = CORRUPTIONS[name](img, sev, rng)
+        results["img"] = np.clip(img, 0, 255).astype(np.float32)
+        return results
+
+
+@PIPELINES.register()
+class RandPosterize:
+    """Bit-depth reduction to ``4 - magnitude`` bits (reference rand_aug.py:202)."""
+
+    def __init__(self, prob=0.5, magnitude_limit=4):
+        self.prob = prob
+        self.magnitude_limit = magnitude_limit
+
+    def __call__(self, results, rng: np.random.RandomState):
+        if rng.rand() >= self.prob:
+            return results
+        bits = max(4 - rng.randint(0, self.magnitude_limit + 1), 1)
+        keep = np.uint8(0xFF & ~((1 << (8 - bits)) - 1))
+        img = np.clip(results["img"], 0, 255).astype(np.uint8)
+        results["img"] = (img & keep).astype(np.float32)
+        return results
+
+
+@PIPELINES.register()
+class Normalize:
+    def __init__(self, mean=IMG_NORM["mean"], std=IMG_NORM["std"], to_rgb=True):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, results, rng=None):
+        results["img"] = (results["img"].astype(np.float32) - self.mean) / self.std
+        return results
+
+
+@PIPELINES.register()
+class Pad:
+    def __init__(self, size_divisor=32):
+        self.d = size_divisor
+
+    def __call__(self, results, rng=None):
+        img = results["img"]
+        ph = (-img.shape[0]) % self.d
+        pw = (-img.shape[1]) % self.d
+        if ph or pw:
+            results["img"] = np.pad(img, ((0, ph), (0, pw), (0, 0)))
+            if results.get("gt_semantic_seg") is not None:
+                results["gt_semantic_seg"] = np.pad(results["gt_semantic_seg"],
+                                                    ((0, ph), (0, pw)))
+            if "gt_masks" in results and len(results["gt_masks"]):
+                results["gt_masks"] = np.pad(results["gt_masks"], ((0, 0), (0, ph), (0, pw)))
+        return results
+
+
+@PIPELINES.register()
+class SegRescale:
+    def __init__(self, scale_factor=0.25):
+        self.f = scale_factor
+
+    def __call__(self, results, rng=None):
+        seg = results.get("gt_semantic_seg")
+        if seg is not None:
+            h, w = seg.shape
+            results["gt_semantic_seg"] = imgproc.resize_nearest(
+                seg, (int(h * self.f), int(w * self.f)))
+        return results
+
+
+# the reference's loading and formatting steps: the loader does their work
+_SKIP = {"LoadImageFromFile", "LoadAnnotations", "CusLoadAnnotations",
+         "DefaultFormatBundle", "Collect", "MultiScaleFlipAug", "ImageToTensor"}
+
+
+def build_transform(cfg):
+    if isinstance(cfg, list):
+        return [build_transform(c) for c in cfg]
+    cfg = dict(cfg)
+    typ = cfg.pop("type")
+    if typ in _SKIP:
+        return None
+    return PIPELINES.get(typ)(**cfg)
+
+
+def build_train_pipeline(cfgs: List[dict]) -> List:
+    return [t for t in (build_transform(c) for c in cfgs) if t is not None]
+
+
+def run_pipeline(transforms: List, results: dict,
+                 rng: np.random.RandomState) -> Optional[dict]:
+    """A transform that returns None rejects the sample; the caller then
+    draws another index."""
+    for t in transforms:
+        results = t(results, rng)
+        if results is None:
+            return None
+    return results

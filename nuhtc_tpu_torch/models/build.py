@@ -13,7 +13,7 @@ from nuhtc_tpu_torch.models.layers import NormedLinear
 from nuhtc_tpu_torch.models.swin import WindowMSA
 
 _BACKBONE_KEYS = ("embed_dims", "depths", "num_heads", "window_size", "mlp_ratio", "qkv_bias",
-                  "qk_scale", "patch_norm", "out_indices", "patch_size")
+                  "qk_scale", "patch_norm", "out_indices", "patch_size", "drop_path_rate")
 
 
 def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = None,
@@ -39,6 +39,15 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
     bbox_ext = dict(roi.get("bbox_roi_extractor") or {})
     rpn_test = dict(test_cfg.get("rpn") or {})
     rcnn_test = dict(test_cfg.get("rcnn") or {})
+    # train_cfg.rcnn[*].sampler.type picks the cascade's RoI sampler
+    rcnn_train = dict(model_cfg.get("train_cfg") or {}).get("rcnn") or []
+    if isinstance(rcnn_train, dict):
+        rcnn_train = [rcnn_train]
+    sampler_type = ""
+    for st in rcnn_train:
+        sampler_type = ((st or {}).get("sampler") or {}).get("type") or sampler_type
+    rcnn_sampler = ("ohem" if "OHEM" in sampler_type
+                    else "instance_balanced" if "InstanceBalanced" in sampler_type else "random")
     return NuHTC(
         num_classes=bbox_heads[0].get("num_classes", 5),
         fpn_channels=neck.get("out_channels", 64),
@@ -57,6 +66,7 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
         watershed_proposal=roi.get("watershed_proposal", True),
         scale_factor=scale_factor,
         backbone_cfg=backbone,
+        rcnn_sampler=rcnn_sampler,
     )
 
 

@@ -9,15 +9,27 @@ The lite Hybrid Task Cascade with component ("watershed") proposals:
   top 2048 candidates, IoU 0.5, top 500) → mask head on the detections.
 
 Outputs are padded to fixed shapes, as in the JAX package.
+
+``compute_losses`` is the supervised train path of the lite head (port of
+nuhtc_tpu/models/detector.py:539-865 with ``exact_rois=True``: the port
+computes the exact RoIAlign semantics, never the TPU's banded extraction):
+RPN assign/sample/losses, train-budget proposals, the semantic Dice loss,
+component proposals injected from the detached semantic logits, three
+interleaved cascade stages with re-assignment (random, instance-balanced
+or OHEM sampler), and the mask Dice loss at the final stage. Boxes are
+detached where the JAX package stops gradients; every RoI feature goes
+through ``roi_align_sum``, whose gradient on the card is K4's backward.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from nuhtc_tpu_torch.models import losses as L
 from nuhtc_tpu_torch.models.bbox_head import Shared2FCBBoxHeadWithProb, seesaw_activation
 from nuhtc_tpu_torch.models.fpn import FPN
 from nuhtc_tpu_torch.models.mask_head import FusedSemanticHead, HTCMaskHead
@@ -26,10 +38,19 @@ from nuhtc_tpu_torch.models.rpn_head import RPNHead, rpn_proposals
 from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
 from nuhtc_tpu_torch.ops import nms as nms_ops
+from nuhtc_tpu_torch.ops.anchors import grid_anchors
 from nuhtc_tpu_torch.ops.components import component_proposals_batched
+from nuhtc_tpu_torch.train import samplers as S
+from nuhtc_tpu_torch.train import targets as T
 
 # per-stage DeltaXYWH stds (reference config)
 STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1), (0.033, 0.033, 0.067, 0.067))
+# train recipe of the lite head (reference config; fixed in the JAX package)
+STAGE_IOU = (0.5, 0.6, 0.7)  # pos = neg = min_pos IoU of each stage's assigner
+STAGE_LOSS_WEIGHTS = (1.0, 0.5, 0.25)
+RPN_SAMPLES, RCNN_SAMPLES, MASK_SAMPLES = 1024, 1024, 256
+TRAIN_NMS_PRE, TRAIN_MAX_PER_IMG = 6000, 3000
+SAMPLERS = ("random", "instance_balanced", "ohem")
 
 
 class RoIHead(nn.Module):
@@ -55,8 +76,12 @@ class NuHTC(nn.Module):
                  rcnn_max_per_img: int = 500, mask_thr_binary: float = 0.5,
                  watershed_proposal: bool = True, watershed_max: int = 512,
                  watershed_min_area: int = 10, scale_factor: float = 2.0,
-                 nms_candidates: int = 2048, backbone_cfg: dict | None = None):
+                 nms_candidates: int = 2048, backbone_cfg: dict | None = None,
+                 rcnn_sampler: str = "random"):
         super().__init__()
+        if rcnn_sampler not in SAMPLERS:
+            raise ValueError(f"NuHTC: rcnn_sampler must be one of {SAMPLERS}, not {rcnn_sampler!r}")
+        self.rcnn_sampler = rcnn_sampler
         self.num_classes, self.strides, self.num_stages = num_classes, tuple(strides), num_stages
         self.attn_start_level, self.attn_thres = attn_start_level, attn_thres
         self.rpn_nms_pre, self.rpn_max_per_img = rpn_nms_pre, rpn_max_per_img
@@ -127,6 +152,13 @@ class NuHTC(nn.Module):
             "valid": ov,
         }
 
+    def features(self, img: torch.Tensor, generator: torch.Generator | None = None
+                 ) -> Tuple[torch.Tensor, ...]:
+        """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C)
+        each, contiguous (the RoI kernel reads them), with gradients;
+        ``generator`` draws the backbone's stochastic depth in training mode."""
+        return tuple(f.contiguous() for f in self.neck(self.backbone(img, generator)))
+
     @torch.no_grad()
     def extract_feats(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C) each."""
@@ -176,3 +208,171 @@ class NuHTC(nn.Module):
                                                det["boxes"] * self.scale_factor)
         return det
 
+
+    # ------------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------------ #
+    def _assign_sample(self, generator, props, props_valid, batch, stage: int, num: int,
+                       sampler: str):
+        """Candidates = the gts then ``props``; stage-IoU assignment and the
+        sampler → (rois (B, num, 4), SampleResult, is_gt (B, num))."""
+        gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+        thr = STAGE_IOU[stage]
+        cand = torch.cat([gt_boxes, props], dim=1)
+        cand_valid = torch.cat([gt_valid, props_valid], dim=1)
+        assign = T.max_iou_assign(cand, cand_valid, gt_boxes, gt_valid, batch["gt_labels"],
+                                  pos_thr=thr, neg_thr=thr, min_pos_iou=thr)
+        if sampler == "instance_balanced":
+            samp = S.instance_balanced_sample(generator, assign, num, 0.25, self.num_classes,
+                                              gt_boxes.shape[1])
+        else:
+            samp = T.random_sample(generator, assign, num, 0.25, self.num_classes)
+        rois = cand.gather(1, samp.idx[..., None].expand(-1, -1, 4))
+        return rois, samp, samp.is_pos & (samp.idx < gt_boxes.shape[1])
+
+    def _ohem_select(self, rois, cls_score, bbox_pred, samp, is_gt):
+        """OHEMSampler_HTC: the pool's candidates ranked by their current
+        seesaw classification loss (detached); the head outputs of the pool
+        are gathered, so the head runs once per stage."""
+        probs = seesaw_activation(cls_score.detach())
+        lbl = samp.labels.clamp(0, self.num_classes)  # negatives → the background column
+        ploss = -torch.log(probs.gather(2, lbl[..., None])[..., 0] + 1e-12)
+        pool = T.AssignResult(
+            gt_inds=torch.where(samp.is_pos, samp.gt_inds + 1, torch.where(samp.valid, 0, -1)),
+            max_iou=torch.zeros_like(ploss),
+            labels=torch.where(samp.is_pos, samp.labels, -1))
+        sel = S.ohem_sample(ploss, pool, RCNN_SAMPLES, 0.25, self.num_classes)
+
+        def take(x):
+            idx = sel.idx if x.dim() == 2 else sel.idx[..., None].expand(-1, -1, x.shape[-1])
+            return x.gather(1, idx)
+
+        samp = T.SampleResult(idx=take(samp.idx), is_pos=sel.is_pos, valid=sel.valid,
+                              gt_inds=sel.gt_inds, labels=sel.labels)
+        return take(rois), take(cls_score), take(bbox_pred), samp, take(is_gt) & sel.is_pos
+
+    def _mask_train_forward(self, feats, semantic_feat, boxes):
+        """boxes (B, S, 4) → mask logits (B, S, 28, 28) of the lite head (no
+        info-flow, as the reference _Lite._mask_forward_train)."""
+        b, s, _ = boxes.shape
+        mf = self._roi_features(feats, semantic_feat, boxes, 14, 0, None)
+        logits = self.roi_head.mask_head(mf.reshape(b * s, *mf.shape[2:]))
+        return logits[..., 0].reshape(b, s, 28, 28)
+
+    def compute_losses(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
+                       cum_samples: torch.Tensor, generator: torch.Generator | None = None):
+        """The train losses of one batch.
+
+        img (B, H, W, 3) normalized; batch: gt_boxes (B, G, 4) f32, gt_labels
+        (B, G) int, gt_valid (B, G) bool, gt_patches (B, G, M, M) f32,
+        gt_semantic (B, Hs, Ws) int, optionally gt_ismask (B, G) f32;
+        cum_samples (num_stages, C) seesaw counts; ``generator`` draws the
+        samplers' uniforms and the backbone's stochastic depth, in this order:
+        backbone, RPN sampler, then per stage the sample and the re-sample.
+        Returns (losses dict with "total", new cum_samples)."""
+        gt_boxes, gt_labels, gt_valid = batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"]
+        b = gt_boxes.shape[0]
+        h, w = img.shape[1:3]
+        img_shape = (h, w)
+        dev = img.device
+        feats = self.features(img, generator)
+        losses: Dict[str, torch.Tensor] = {}
+
+        # ---- RPN ----------------------------------------------------------
+        cls_scores, bbox_preds = self.rpn_head(feats)
+        sizes = [tuple(cs.shape[1:3]) for cs in cls_scores]
+        anchors = torch.from_numpy(np.concatenate(
+            grid_anchors(sizes, self.strides, (4,), (0.5, 1.0, 2.0)))).to(dev)
+        inside = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0) & (anchors[:, 2] <= w)
+                  & (anchors[:, 3] <= h))
+        flat_cls = torch.cat([c.reshape(b, -1) for c in cls_scores], dim=1).float()
+        flat_reg = torch.cat([r.reshape(b, -1, 4) for r in bbox_preds], dim=1).float()
+        anchors_b = anchors.expand(b, -1, -1)
+        assign = T.max_iou_assign(anchors_b, inside.expand(b, -1), gt_boxes, gt_valid,
+                                  gt_labels, pos_thr=0.7, neg_thr=0.3, min_pos_iou=0.3)
+        samp = T.random_sample(generator, assign, RPN_SAMPLES, 0.5, 1)
+        sel_anchors = anchors_b.gather(1, samp.idx[..., None].expand(-1, -1, 4))
+        r_tgt, _ = T.encode_stage_targets(sel_anchors, samp, gt_boxes, (1.0, 1.0, 1.0, 1.0))
+        r_val = samp.valid.float()
+        sel_cls = flat_cls.gather(1, samp.idx)
+        sel_reg = flat_reg.gather(1, samp.idx[..., None].expand(-1, -1, 4))
+        num_total = r_val.sum().clamp(min=1.0)
+        losses["loss_rpn_cls"] = (L.sigmoid_ce(sel_cls, samp.is_pos.float()) * r_val
+                                  ).sum() / num_total
+        losses["loss_rpn_bbox"] = (L.smooth_l1(sel_reg, r_tgt, beta=1.0 / 9.0)
+                                   * samp.is_pos[..., None]).sum() / num_total
+
+        with torch.no_grad():  # proposals carry no gradient (JAX: stop_gradient)
+            prop_boxes, _, prop_valid = rpn_proposals(
+                cls_scores, bbox_preds, img_shape, strides=self.strides,
+                nms_pre=TRAIN_NMS_PRE, max_per_img=TRAIN_MAX_PER_IMG,
+                nms_iou=self.rpn_nms_iou, min_bbox_size=self.rpn_min_bbox_size)
+
+        # ---- semantic head -------------------------------------------------
+        semantic_logits, semantic_feat = self.roi_head.semantic_head(feats)
+        semantic_feat = semantic_feat.contiguous()
+        sem_target = (batch["gt_semantic"] != 0).float()
+        losses["loss_semantic_seg"] = L.dice_loss(torch.sigmoid(semantic_logits[..., 0]),
+                                                  sem_target)
+
+        # ---- component proposals from the detached semantic logits ----------
+        proposals, proposals_valid = prop_boxes, prop_valid
+        if self.watershed_proposal:
+            with torch.no_grad():
+                ws_boxes5, ws_valid = component_proposals_batched(
+                    semantic_logits[..., 0].detach(), img_shape,
+                    max_components=self.watershed_max, min_area=self.watershed_min_area)
+            proposals = torch.cat([ws_boxes5[..., :4], prop_boxes], dim=1)
+            proposals_valid = torch.cat([ws_valid, prop_valid], dim=1)
+
+        # ---- cascade stages, interleaved ------------------------------------
+        sampler = self.rcnn_sampler
+        draw_sampler = "random" if sampler == "ohem" else sampler
+        pool = 2 * RCNN_SAMPLES if sampler == "ohem" else RCNN_SAMPLES
+        ismask = batch.get("gt_ismask")
+        new_cum = []
+        for stage in range(self.num_stages):
+            lw = STAGE_LOSS_WEIGHTS[stage]
+            rois, samp, is_gt = self._assign_sample(generator, proposals, proposals_valid,
+                                                    batch, stage, pool, draw_sampler)
+            cls_score, bbox_pred = self._bbox_stage(stage, feats, semantic_feat, rois)
+            cls_score, bbox_pred = cls_score.float(), bbox_pred.float()
+            if sampler == "ohem":
+                rois, cls_score, bbox_pred, samp, is_gt = self._ohem_select(
+                    rois, cls_score, bbox_pred, samp, is_gt)
+            bbox_tgt, bbox_w = T.encode_stage_targets(rois, samp, gt_boxes, STAGE_STDS[stage])
+            flat_w = samp.valid.reshape(-1).float()
+            loss_cls, loss_obj, cum = L.seesaw_loss(
+                cls_score.reshape(-1, self.num_classes + 2), samp.labels.reshape(-1), flat_w,
+                cum_samples[stage])
+            avg = flat_w.sum().clamp(min=1.0)
+            loss_bbox = (L.smooth_l1(bbox_pred, bbox_tgt, beta=1.0) * bbox_w[..., None]
+                         ).sum() / avg
+            losses[f"s{stage}.loss_cls"] = lw * loss_cls
+            losses[f"s{stage}.loss_obj"] = lw * loss_obj
+            losses[f"s{stage}.loss_bbox"] = lw * loss_bbox
+            new_cum.append(cum)
+
+            # refine, then re-assign and re-sample at the target size
+            refined = box_ops.delta2bbox(rois, bbox_pred, stds=STAGE_STDS[stage],
+                                         max_shape=img_shape).detach()
+            refined_valid = samp.valid & ~is_gt
+            rois2, samp2, _ = self._assign_sample(generator, refined, refined_valid, batch,
+                                                  stage, RCNN_SAMPLES, draw_sampler)
+            proposals, proposals_valid = refined, refined_valid
+
+            if stage == self.num_stages - 1:  # lite: the mask loss at the final stage
+                mrois = rois2[:, :MASK_SAMPLES]
+                mpos = samp2.is_pos[:, :MASK_SAMPLES]
+                mgt = samp2.gt_inds[:, :MASK_SAMPLES]
+                mask_logits = self._mask_train_forward(feats, semantic_feat, mrois)
+                mtgt = T.mask_targets_from_patches(mrois, mgt, gt_boxes, batch["gt_patches"])
+                mw = mpos.float()
+                if ismask is not None:  # box-only instances give no mask loss
+                    mw = mw * ismask.float().gather(1, mgt)
+                losses[f"s{stage}.loss_mask"] = lw * L.dice_loss(
+                    torch.sigmoid(mask_logits.float().reshape(-1, 28, 28)),
+                    mtgt.reshape(-1, 28, 28), weight=mw.reshape(-1))
+
+        losses["total"] = sum(losses.values())
+        return losses, torch.stack(new_cum)

@@ -12,7 +12,14 @@ kernel (``ops.window_block``); ``"attn"`` runs attention and proj through
 the K2 kernel (``ops.window_attention``) and leaves the residual, LN2 and
 the erf-GELU MLP to PyTorch; ``"none"`` takes the plain path with exact
 softmax attention and erf GELU. On the CPU and in training mode every tier
-takes the plain path.
+takes the plain path, as the JAX train step trains the blocks in XLA
+(nuhtc_tpu/models/swin.py:236-241 takes the Pallas tiers only when
+deterministic).
+
+In training mode each block's two residual branches go through stochastic
+depth (``drop_path``, nuhtc_tpu/models/layers.py), at rates rising linearly
+over the blocks to ``drop_path_rate``, with draws from the generator the
+caller passes to ``forward``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,23 @@ from nuhtc_tpu_torch.ops.window_block import (
 )
 
 KERNEL_TIERS = ("block", "attn", "none")
+
+
+def keep_mask(generator: torch.Generator, shape, keep: float, device) -> torch.Tensor:
+    """Bernoulli(keep) draws of stochastic depth, from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Stochastic depth on the batch axis: each sample's branch is kept with
+    probability 1 - rate and then scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("drop_path: training draws need an explicit torch.Generator")
+    keep = 1.0 - rate
+    mask = keep_mask(generator, (x.shape[0],) + (1,) * (x.dim() - 1), keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def rel_position_index(ws: int) -> np.ndarray:
@@ -95,11 +119,12 @@ def _pad_roll(x: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: bool,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: float | None = None,
-                 kernel: str = "block"):
+                 kernel: str = "block", drop_path_rate: float = 0.0):
         super().__init__()
         if kernel not in KERNEL_TIERS:
             raise ValueError(f"SwinBlock: kernel must be one of {KERNEL_TIERS}, not {kernel!r}")
         self.kernel = kernel
+        self.drop_path_rate = drop_path_rate
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -128,8 +153,9 @@ class SwinBlock(nn.Module):
                 self._params = BlockParams(key=key, **src)
         return self._params
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C) → (B, H, W, C)."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x (B, H, W, C) → (B, H, W, C); ``generator`` draws the stochastic
+        depth in training mode."""
         _, h, w, c = x.shape
         ws, s = self.window_size, self.shift
         h1p = _pad_roll(self.norm1(x), ws, s)
@@ -152,8 +178,9 @@ class SwinBlock(nn.Module):
             y = window_reverse(msa(window_partition(h1p, ws), mask), ws, hp, wp)
         if s:
             y = torch.roll(y, (s, s), dims=(1, 2))
-        x = x + y[:, :h, :w]
-        return x + self.ffn(self.norm2(x))
+        rate = self.drop_path_rate if self.training else 0.0
+        x = x + drop_path(y[:, :h, :w], rate, generator)
+        return x + drop_path(self.ffn(self.norm2(x)), rate, generator)
 
 
 class PatchMerging(nn.Module):
@@ -174,11 +201,13 @@ class PatchMerging(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio, qkv_bias, qk_scale,
-                 downsample: bool, kernel: str = "block"):
+                 downsample: bool, kernel: str = "block", drop_path_rates=None):
         super().__init__()
+        rates = drop_path_rates if drop_path_rates is not None else [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, shift=(i % 2 == 1), mlp_ratio=mlp_ratio,
-                      qkv_bias=qkv_bias, qk_scale=qk_scale, kernel=kernel)
+                      qkv_bias=qkv_bias, qk_scale=qk_scale, kernel=kernel,
+                      drop_path_rate=float(rates[i]))
             for i in range(depth))
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
 
@@ -201,27 +230,31 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, qk_scale: float | None = None,
                  patch_norm: bool = True, out_indices: Sequence[int] = (0, 1, 2, 3),
-                 patch_size: int = 4, in_channels: int = 3, kernel: str = "block"):
+                 patch_size: int = 4, in_channels: int = 3, kernel: str = "block",
+                 drop_path_rate: float = 0.2):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size, patch_norm)
         self.stages = nn.ModuleList()
         dim = embed_dims
+        dprs = np.linspace(0, drop_path_rate, sum(depths))
         for i, depth in enumerate(depths):
+            first = sum(depths[:i])
             self.stages.append(SwinStage(dim, depth, num_heads[i], window_size, mlp_ratio,
                                          qkv_bias, qk_scale, downsample=i < len(depths) - 1,
-                                         kernel=kernel))
+                                         kernel=kernel, drop_path_rates=dprs[first:first + depth]))
             if i in self.out_indices:
                 self.add_module(f"norm{i}", nn.LayerNorm(dim, eps=1e-5))
             dim *= 2
 
-    def forward(self, img: torch.Tensor):
-        """img (B, H, W, 3) normalized → tuple of NHWC feature maps."""
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None):
+        """img (B, H, W, 3) normalized → tuple of NHWC feature maps;
+        ``generator`` draws the stochastic depth in training mode."""
         x = self.patch_embed(img)
         outs = []
         for i, stage in enumerate(self.stages):
             for blk in stage.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             if i in self.out_indices:
                 outs.append(getattr(self, f"norm{i}")(x))
             if stage.downsample is not None:

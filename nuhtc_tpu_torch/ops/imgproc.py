@@ -545,37 +545,77 @@ def _split_coord(s: np.ndarray):
     return i, (s - i.astype(np.float32)).astype(np.float32)
 
 
-def warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
-    """``cv2.warpAffine(img, m, dsize)`` (INTER_LINEAR, BORDER_CONSTANT 0) of
-    a float32 (H, W) image; ``dsize`` is (width, height). OpenCV inverts the
-    matrix in doubles, rounds it to float32, and per output pixel forms the
-    source point as fma(x, m00, y·m01) + m02 in float32 (so does its scalar
-    code, which serves rows narrower than 16), then ``_bilinear`` with 0
-    outside the image. Equal to cv2 5.0.0 for widths below 16, which is all
-    the corruption catalog warps (kernels of at most 15 taps); wider rows
-    take OpenCV's vector code, which forms the point in another order."""
-    if img.dtype != np.float32 or img.ndim != 2:
-        raise ValueError(f"warp_affine takes a float32 (H, W) image, got {img.dtype} {img.shape}")
+def _invert_affine_f32(m: np.ndarray) -> np.ndarray:
+    """OpenCV's inverse of a 2×3 affine (in doubles), rounded to float32."""
     m = [float(v) for v in np.asarray(m, np.float64).ravel()]
     det = m[0] * m[4] - m[1] * m[3]
     det = 1.0 / det if det != 0 else 0.0
     a11, a22 = m[4] * det, m[0] * det
     m[0], m[1], m[3], m[4] = a11, m[1] * -det, m[3] * -det, a22
     m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
-    f = np.asarray(m, np.float32)
+    return np.asarray(m, np.float32)
+
+
+_WARP_VECTOR_PIXELS = 16  # the pixels of one vector step of cv2 5.0.0's warpAffine
+
+
+def _warp_source(m: np.ndarray, dsize: Tuple[int, int]):
+    """Per output pixel the float32 source point of ``cv2.warpAffine``: the
+    first 16·⌊W/16⌋ pixels of a row come from OpenCV's vector code, which
+    forms fma(x, m00, y·m01 + m02), the rest from its scalar code, which
+    forms fma(x, m00, y·m01) + m02 (float32 throughout)."""
+    f = _invert_affine_f32(m)
     ow, oh = dsize
     yy, xx = np.mgrid[:oh, :ow].astype(np.float32)
-    sx = (_fma(xx, f[0], yy * f[1]) + f[2]).astype(np.float32)
-    sy = (_fma(xx, f[3], yy * f[4]) + f[5]).astype(np.float32)
+    vector = xx < ow - ow % _WARP_VECTOR_PIXELS
+
+    def axis(c0, c1, c2):
+        scalar = (_fma(xx, c0, yy * c1) + c2).astype(np.float32)
+        vec = _fma(xx, c0, (yy * c1 + c2).astype(np.float32))
+        return np.where(vector, vec, scalar)
+
+    return axis(f[0], f[1], f[2]), axis(f[3], f[4], f[5])
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize)`` (INTER_LINEAR, BORDER_CONSTANT 0) of
+    a float32 (H, W) or (H, W, C) image; ``dsize`` is (width, height).
+    OpenCV inverts the matrix in doubles, rounds it to float32, forms each
+    output pixel's source point as ``_warp_source`` says, then ``_bilinear``
+    with 0 outside the image. Equal to cv2 5.0.0."""
+    if img.dtype != np.float32 or img.ndim not in (2, 3):
+        raise ValueError(f"warp_affine takes a float32 (H, W[, C]) image, got {img.dtype} "
+                         f"{img.shape}")
+    sx, sy = _warp_source(m, dsize)
     ix, a = _split_coord(sx)
     iy, b = _split_coord(sy)
-    h, w = img.shape
+    h, w = img.shape[:2]
+    if img.ndim == 3:
+        a, b = a[..., None], b[..., None]
 
     def tap(y, x):
         inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        if img.ndim == 3:
+            inside = inside[..., None]
         return np.where(inside, img[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)], np.float32(0))
 
     return _bilinear(tap(iy, ix), tap(iy, ix + 1), tap(iy + 1, ix), tap(iy + 1, ix + 1), a, b)
+
+
+def warp_affine_nearest(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int],
+                        border_value: int = 0) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=cv2.INTER_NEAREST,
+    borderValue=border_value)`` of a (H, W) image: the source point of
+    ``_warp_source`` rounded half to even; a point outside the image takes
+    ``border_value``. Equal to cv2 5.0.0."""
+    if img.ndim != 2:
+        raise ValueError(f"warp_affine_nearest takes an (H, W) image, got {img.shape}")
+    sx, sy = _warp_source(m, dsize)
+    ix, iy = np.rint(sx).astype(np.int64), np.rint(sy).astype(np.int64)
+    h, w = img.shape
+    inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+    out = img[np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1)]
+    return np.where(inside, out, np.asarray(border_value).astype(img.dtype))
 
 
 def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:

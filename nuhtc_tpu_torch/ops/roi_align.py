@@ -8,7 +8,11 @@ through ``pool_from``. ``roi_align_sum`` is what a cascade stage needs of it:
 the sum of RoIAlign over up to three maps, each with its own scale, sampling
 ratio and ``pool_from``, on one set of boxes, plus a per-RoI bias. On CUDA
 tensors both launch the hand kernel (``csrc/roi_align.cu``) once, ``roi_align``
-as its one-map mode; on CPU tensors they run the plain versions.
+as its one-map mode; on CPU tensors they run the plain versions. On CUDA
+tensors that require grad, ``roi_align_sum``'s result carries a ``grad_fn``
+whose backward is the hand kernel ``roi_align_sum_backward`` (the JAX
+package trains through XLA's autodiff of its exact RoIAlign, not through a
+Pallas kernel); its plain version is autograd through ``roi_align_sum_plain``.
 
 ``roi_align_plain`` is the port of the dense ``exact`` semantics of
 nuhtc_tpu/ops/roi_align.py: two interpolation products per RoI,
@@ -19,7 +23,7 @@ chunks so the (R, out, W, C) intermediate stays near 1 GiB.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -126,8 +130,10 @@ def roi_align_sum(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     bias (B, R, C) or None → (B, R, out, out, C) in the maps' type. The kernel
     sums in f32 and rounds once, at the store.
 
-    CPU tensors take ``roi_align_sum_plain``; CUDA tensors launch the kernel,
-    once, or raise."""
+    CPU tensors take ``roi_align_sum_plain`` (autograd gives its gradient);
+    CUDA tensors launch the kernel, once, or raise. When a map or the bias
+    requires grad, the result's ``grad_fn`` launches the backward kernel
+    (``roi_align_sum_backward``) once. The boxes take no gradient."""
     feats = list(feats)
     n = len(feats)
     if not (n == len(spatial_scales) == len(sampling_ratios) == len(pool_froms)):
@@ -154,6 +160,8 @@ def roi_align_sum(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                                                    or ratio)):
             raise ValueError("roi_align_sum: pool_from must be a multiple of output_size, "
                              "with sampling_ratio 0")
+    if rois.requires_grad and torch.is_grad_enabled():
+        raise ValueError("roi_align_sum: takes no gradient for the boxes; pass detached rois")
     if first.device.type == "cpu":
         return roi_align_sum_plain(feats, rois, spatial_scales, output_size, sampling_ratios,
                                    pool_froms, bias, max_grid)
@@ -163,7 +171,35 @@ def roi_align_sum(feats: Sequence[torch.Tensor], rois: torch.Tensor,
         raise ValueError(f"roi_align_sum: kernel takes bf16 or f32 maps, not {first.dtype}")
     if min(output_size, max_grid) < 1:
         raise ValueError(f"roi_align_sum: out={output_size} max_grid={max_grid}")
-    out = first.new_empty((b, r, output_size, output_size, c))
+    spec = _Spec(tuple(float(s) for s in spatial_scales), int(output_size),
+                 tuple(int(x) for x in sampling_ratios),
+                 tuple(int(p or 0) for p in pool_froms), int(max_grid))
+    wants_grad = torch.is_grad_enabled() and (
+        any(f.requires_grad for f in feats) or (bias is not None and bias.requires_grad))
+    if wants_grad:
+        return _RoIAlignSum.apply(rois, bias, spec, *feats)
+    return _forward_launch(feats, rois, bias, spec)
+
+
+class _Spec(NamedTuple):
+    """The static arguments of one K4 call (pool_from 0 for none)."""
+    scales: tuple
+    output_size: int
+    sampling_ratios: tuple
+    pool_froms: tuple
+    max_grid: int
+
+    def dims(self, shapes) -> list:
+        out = []
+        for shape, ratio, pool_from in zip(shapes, self.sampling_ratios, self.pool_froms):
+            out += [int(shape[1]), int(shape[2]), ratio, pool_from]
+        return out
+
+
+def _forward_launch(feats, rois, bias, spec: _Spec) -> torch.Tensor:
+    first = feats[0]
+    b, r, c = first.shape[0], rois.shape[1], first.shape[3]
+    out = first.new_empty((b, r, spec.output_size, spec.output_size, c))
     if out.numel() == 0:
         return out
 
@@ -171,21 +207,122 @@ def roi_align_sum(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
     from nuhtc_tpu_torch import kernels
 
-    feats_c = [f.contiguous() for f in feats]
-    rois_c = rois.to(torch.float32).contiguous()
-    bias_c = None if bias is None else bias.to(torch.float32).contiguous()
-    dims = []
-    for f, ratio, pool_from in zip(feats_c, sampling_ratios, pool_froms):
-        dims += [f.shape[1], f.shape[2], int(ratio), int(pool_from or 0)]
+    n = len(feats)
+    feats_c = [f.detach().contiguous() for f in feats]
+    rois_c = rois.detach().to(torch.float32).contiguous()
+    bias_c = None if bias is None else bias.detach().to(torch.float32).contiguous()
     code = kernels.load().roi_align_sum_launch(
-        (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats_c]), (ctypes.c_int * (4 * n))(*dims),
-        (ctypes.c_float * n)(*[float(s) for s in spatial_scales]), n, rois_c.data_ptr(),
-        None if bias_c is None else bias_c.data_ptr(), out.data_ptr(), b, r, c, output_size,
-        max_grid, int(first.dtype == torch.bfloat16),
+        (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats_c]),
+        (ctypes.c_int * (4 * n))(*spec.dims([f.shape for f in feats_c])),
+        (ctypes.c_float * n)(*spec.scales), n, rois_c.data_ptr(),
+        None if bias_c is None else bias_c.data_ptr(), out.data_ptr(), b, r, c,
+        spec.output_size, spec.max_grid, int(first.dtype == torch.bfloat16),
         torch.cuda.current_stream(first.device).cuda_stream)
     kernels.check(code, "roi_align_sum")
     roi_align.launches += 1
     return out
+
+
+class _RoIAlignSum(torch.autograd.Function):
+    """K4 forward with K4's backward as its gradient (maps and bias)."""
+
+    @staticmethod
+    def forward(ctx, rois, bias, spec, *feats):
+        ctx.spec = spec
+        ctx.map_shapes = [tuple(f.shape) for f in feats]
+        ctx.with_bias = bias is not None
+        ctx.save_for_backward(rois)
+        return _forward_launch(feats, rois, bias, spec)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (rois,) = ctx.saved_tensors
+        spec = ctx.spec
+        grad_maps, grad_bias = roi_align_sum_backward(
+            grad_out, ctx.map_shapes, rois, spec.scales, spec.output_size,
+            spec.sampling_ratios, [p or None for p in spec.pool_froms], ctx.with_bias,
+            spec.max_grid)
+        return (None, grad_bias, None, *grad_maps)
+
+
+def roi_align_sum_backward_plain(grad_out: torch.Tensor, map_shapes, rois: torch.Tensor,
+                                 spatial_scales: Sequence[float], output_size: int,
+                                 sampling_ratios: Sequence[int],
+                                 pool_froms: Sequence[int | None], with_bias: bool,
+                                 max_grid: int = 8):
+    """Plain version of K4's backward: autograd through ``roi_align_sum_plain``
+    in grad_out's type (the sum is linear in the maps and the bias, so its
+    gradient needs only their shapes) → (map gradients, bias gradient f32 or
+    None)."""
+    dt, dev = grad_out.dtype, grad_out.device
+    maps = [torch.zeros(s, dtype=dt, device=dev, requires_grad=True) for s in map_shapes]
+    b, r = rois.shape[:2]
+    bias = (torch.zeros((b, r, map_shapes[0][3]), dtype=torch.float32, device=dev,
+                        requires_grad=True) if with_bias else None)
+    with torch.enable_grad():
+        out = roi_align_sum_plain(maps, rois.detach(), spatial_scales, output_size,
+                                  sampling_ratios, pool_froms, bias, max_grid)
+        grads = torch.autograd.grad(out, maps + ([bias] if with_bias else []), grad_out)
+    return list(grads[:len(maps)]), (grads[-1] if with_bias else None)
+
+
+def roi_align_sum_backward(grad_out: torch.Tensor, map_shapes, rois: torch.Tensor,
+                           spatial_scales: Sequence[float], output_size: int,
+                           sampling_ratios: Sequence[int], pool_froms: Sequence[int | None],
+                           with_bias: bool, max_grid: int = 8):
+    """K4's backward wrapper: grad_out (B, R, out, out, C) → (one gradient
+    (B, Hₗ, Wₗ, C) per map in grad_out's type, the bias gradient (B, R, C) f32
+    or None). The kernel adds every sample's weight × grad_out into an f32
+    buffer per map with atomics and rounds a bf16 map's buffer once.
+
+    CPU tensors take ``roi_align_sum_backward_plain``; CUDA tensors launch
+    the kernel, once, or raise. ``roi_align_sum_backward.launches`` counts
+    the launches."""
+    if grad_out.device.type == "cpu":
+        return roi_align_sum_backward_plain(grad_out, map_shapes, rois, spatial_scales,
+                                            output_size, sampling_ratios, pool_froms,
+                                            with_bias, max_grid)
+    if grad_out.device.type != "cuda" or rois.device != grad_out.device:
+        raise ValueError(f"roi_align_sum_backward: unsupported device {grad_out.device}")
+    if grad_out.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"roi_align_sum_backward: takes bf16 or f32, not {grad_out.dtype}")
+    n = len(map_shapes)
+    b, r = rois.shape[:2]
+    c = map_shapes[0][3]
+    if tuple(grad_out.shape) != (b, r, output_size, output_size, c) or not 1 <= n <= 3:
+        raise ValueError(f"roi_align_sum_backward: bad shapes {tuple(grad_out.shape)} "
+                         f"{map_shapes} {tuple(rois.shape)}")
+    dev = grad_out.device
+    bufs = [torch.zeros(s, dtype=torch.float32, device=dev) for s in map_shapes]
+    is_bf16 = grad_out.dtype == torch.bfloat16
+    grads = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in map_shapes] if is_bf16 \
+        else bufs
+    grad_bias = torch.empty((b, r, c), dtype=torch.float32, device=dev) if with_bias else None
+    if grad_out.numel() == 0:
+        return grads, None if grad_bias is None else grad_bias.zero_()
+
+    import ctypes
+
+    from nuhtc_tpu_torch import kernels
+
+    spec = _Spec(tuple(float(s) for s in spatial_scales), int(output_size),
+                 tuple(int(x) for x in sampling_ratios),
+                 tuple(int(p or 0) for p in pool_froms), int(max_grid))
+    g = grad_out.contiguous()
+    rois_c = rois.detach().to(torch.float32).contiguous()
+    code = kernels.load().roi_align_sum_backward_launch(
+        (ctypes.c_void_p * n)(*[t.data_ptr() for t in bufs]),
+        (ctypes.c_void_p * n)(*[t.data_ptr() for t in grads]),
+        (ctypes.c_int * (4 * n))(*spec.dims(map_shapes)),
+        (ctypes.c_float * n)(*spec.scales), n, rois_c.data_ptr(), g.data_ptr(),
+        None if grad_bias is None else grad_bias.data_ptr(), b, r, c, output_size, max_grid,
+        int(is_bf16), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(code, "roi_align_sum_backward")
+    roi_align_sum_backward.launches += 1
+    return grads, grad_bias
+
+
+roi_align_sum_backward.launches = 0
 
 
 def roi_align(feat: torch.Tensor, rois: torch.Tensor, spatial_scale: float, output_size: int,

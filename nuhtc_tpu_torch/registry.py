@@ -1,6 +1,6 @@
 """String-keyed registries for config-driven construction (port of
-nuhtc_tpu/registry.py: ``Registry`` and the one registry the port uses,
-``DATASETS``).
+nuhtc_tpu/registry.py: ``Registry`` and the registries the port uses,
+``DATASETS``, ``LOSSES`` and ``PIPELINES``).
 
 The reference framework wires every component through mmdet registries
 (`@DETECTORS.register_module()` etc.; see reference
@@ -41,5 +41,8 @@ class Registry:
         return key in self._registry
 
 
-# the port builds its models in models/build.py; only datasets go by name
+# the port builds its models in models/build.py; datasets, losses and the
+# train pipeline's transforms go by name
 DATASETS = Registry("datasets")
+LOSSES = Registry("losses")
+PIPELINES = Registry("pipelines")

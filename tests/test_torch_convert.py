@@ -151,6 +151,21 @@ def test_port_never_imports_jax():
                             tile_size=64, device="cpu")
         res = eng.run_batch([np.full((64, 64, 3), 200, np.uint8)])
         assert len(res) == 1
+        # one train step on the CPU: collate, compute_losses, AdamW + EMA
+        from nuhtc_tpu_torch.data.loader import collate_train
+        from nuhtc_tpu_torch.train.train_state import create_train_state, make_train_step
+        model = eng.model.float()
+        masks = np.zeros((2, 64, 64), np.uint8)
+        masks[0, 10:20, 12:24] = 1
+        masks[1, 30:44, 40:52] = 1
+        sample = dict(img=np.random.RandomState(0).randn(64, 64, 3).astype(np.float32),
+                      gt_bboxes=np.float32([[12, 10, 24, 20], [40, 30, 52, 44]]),
+                      gt_labels=np.int64([1, 3]), gt_masks=masks,
+                      gt_semantic_seg=masks.max(0)[::4, ::4])
+        batch = {k: torch.from_numpy(v) for k, v in collate_train([sample, sample]).items()}
+        state, tx = create_train_state(model)
+        state, metrics = make_train_step(model, tx)(state, batch, torch.Generator())
+        assert state.step == 1 and np.isfinite(float(metrics["total"]))
         new = set(sys.modules) - before
         assert "nuhtc_tpu_torch.config.config" in new
         walked = ("wsi.slide", "wsi.tissue", "wsi.stitch", "wsi.export", "wsi.infer",
@@ -168,11 +183,15 @@ def test_port_never_imports_jax():
                   "tools.analysis_tools.conic.misc.patch_extractor",
                   "tools.analysis_tools.consep.compute_stats",
                   "tools.analysis_tools.coco_error_analysis",
-                  "tools.analysis_tools.print_metric")
+                  "tools.analysis_tools.print_metric", "models.losses", "train.targets",
+                  "train.samplers", "train.train_state", "train.optim_groups", "train.trainer",
+                  "utils.checkpoint", "utils.hooks", "utils.logging", "apis.train",
+                  "tools.train")
         missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
         assert not missing, missing
         bad = sorted(m for m in new
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "nuhtc_tpu", "cv2", "pandas",
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                            "nuhtc_tpu", "cv2", "pandas",
                                             "skimage", "shapely", "h5py", "PIL", "matplotlib",
                                             "sklearn", "pycocotools"))
         print("IMPORTED", bad)

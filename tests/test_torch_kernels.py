@@ -8,6 +8,10 @@ The CPU wrappers' dispatch to the plain versions is checked here too, and
 K2's plain twin ``window_attention_plain`` is held against the Pallas kernel
 ``window_attention_fused`` in interpret mode (these cases import JAX inside
 the test) at the small shapes of test_fused_attention.py, atol 0.06.
+K4's backward (``roi_align_sum_backward``, the ``grad_fn`` of
+``roi_align_sum`` on CUDA tensors) is held against autograd through the
+plain version: f32 within 1e-4 of each map's gradient scale, bf16 within
+2^-7 of the f32 plain gradients' scale.
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ import torch
 
 from nuhtc_tpu_torch.ops import components as tc
 from nuhtc_tpu_torch.ops.roi_align import (
+    roi_align_sum_backward, roi_align_sum_backward_plain,
     roi_align, roi_align_plain, roi_align_sum, roi_align_sum_plain,
 )
 from nuhtc_tpu_torch.ops.window_block import (
@@ -620,3 +625,71 @@ def test_component_stats_kernel_many_ids(cuda):
     boxes, areas = _check_component_stats(lab, roots, launches=2)
     assert torch.equal(boxes[:, -1], boxes[:, 0]) and torch.equal(areas[:, -1], areas[:, 0])
     _check_component_stats(lab, roots[:, :4096].contiguous())
+
+
+def _backward_case(device, dtype, c, out, ratio, pool_from, seed=0):
+    """The stage case with maps and bias that require grad, and an upstream
+    gradient (B, R, out, out, C)."""
+    maps, rois, bias = _stage_case(device, torch.float32, c, seed=seed)
+    maps = [m.to(dtype).requires_grad_(True) for m in maps]
+    bias = bias.requires_grad_(True)
+    rng = np.random.RandomState(seed + 7)
+    g = torch.from_numpy(rng.randn(rois.shape[0], rois.shape[1], out, out, c)
+                         .astype(np.float32)).to(device, dtype)
+    return maps, rois, bias, g
+
+
+def test_roi_align_sum_backward_cpu_is_autograd_of_plain():
+    """On the CPU the backward wrapper is autograd through the plain
+    version, which is what ``roi_align_sum`` differentiates there; the boxes
+    take no gradient."""
+    before = roi_align_sum_backward.launches
+    for out, ratio, pool_from in STAGE_SHAPES:
+        maps, rois, bias, g = _backward_case("cpu", torch.float32, 8, out, ratio, pool_from)
+        args = _stage_args(out, ratio, pool_from)
+        roi_align_sum(maps, rois, *args, bias=bias).backward(g)
+        gm, gb = roi_align_sum_backward(g, [tuple(m.shape) for m in maps], rois, *args, True)
+        for m, want in zip(maps, gm):
+            assert torch.allclose(m.grad, want, atol=1e-5, rtol=0)
+            assert want.abs().max().item() > 0.1
+        assert torch.allclose(bias.grad, gb, atol=1e-5, rtol=0)
+        assert torch.allclose(gb, g.sum((2, 3)), atol=1e-4, rtol=0)
+    assert roi_align_sum_backward.launches == before
+    with pytest.raises(ValueError):
+        roi_align_sum(maps, rois.requires_grad_(True), *_stage_args(7, 2, 14), bias=bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,ratio,pool_from", STAGE_SHAPES, ids=["bbox", "mask"])
+@pytest.mark.parametrize("c", [64, 20, 3])
+def test_roi_align_sum_backward_kernel_matches_plain(cuda, out, ratio, pool_from, c):
+    """``roi_align_sum`` on CUDA maps that require grad: its grad_fn launches
+    the backward kernel once. f32 within 1e-4 of each map's gradient scale
+    (atomics add in another order); bf16 within 2^-7 of the f32 plain
+    gradients' scale (one rounding of the f32 sums). The bias gradient is
+    the sum of grad_out over the bins."""
+    args = _stage_args(out, ratio, pool_from)
+    maps, rois, bias, g = _backward_case(cuda, torch.float32, c, out, ratio, pool_from)
+    before_f, before_b = roi_align.launches, roi_align_sum_backward.launches
+    res = roi_align_sum(maps, rois, *args, bias=bias)
+    assert res.grad_fn is not None
+    res.backward(g)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before_f + 1
+    assert roi_align_sum_backward.launches == before_b + 1
+    shapes = [tuple(m.shape) for m in maps]
+    want, want_b = roi_align_sum_backward_plain(g, shapes, rois, *args, True)
+    for m, w in zip(maps, want):
+        scale = w.abs().max().item()
+        assert scale > 0.1 and m.grad.dtype == torch.float32
+        assert (m.grad - w).abs().max().item() <= 1e-4 * scale
+    assert (bias.grad - want_b).abs().max().item() <= 1e-4 * want_b.abs().max().item()
+
+    maps16, _, bias16, _ = _backward_case(cuda, torch.bfloat16, c, out, ratio, pool_from)
+    roi_align_sum(maps16, rois, *args, bias=bias16).backward(g.bfloat16())
+    torch.cuda.synchronize()
+    assert roi_align_sum_backward.launches == before_b + 2
+    want32, _ = roi_align_sum_backward_plain(g.bfloat16().float(), shapes, rois, *args, True)
+    for m, w in zip(maps16, want32):
+        assert m.grad.dtype == torch.bfloat16
+        assert (m.grad.float() - w).abs().max().item() <= 2.0 ** -7 * w.abs().max().item()

@@ -3,6 +3,11 @@
 - The port's ``SwinTransformer`` (plain path: exact softmax, erf GELU)
   against JAX's XLA path in f32, padding and shifted windows included:
   atol 1e-4.
+- In training mode with stochastic depth (rate 0.3, rising over the blocks
+  as ``np.linspace``): the same output as JAX's ``deterministic=False``
+  path when both take the same keep masks (``jax.random.bernoulli`` and the
+  port's ``swin.keep_mask`` patched to hand out one table), atol 1e-4; the
+  port raises without a generator and is the identity in eval mode.
 - K1's plain twin ``window_block_plain`` against the Pallas kernel
   ``window_block_fused`` in interpret mode at the shapes of
   test_fused_attention.py (ws 4, C 16, 2 heads, 6×7 map padded to 8×8,
@@ -19,6 +24,7 @@ from nuhtc_tpu.models.swin import SwinBlock as JaxSwinBlock
 from nuhtc_tpu.models.swin import SwinTransformer as JaxSwin
 from nuhtc_tpu.models.swin import _rel_position_index
 from nuhtc_tpu.ops.window_attention_pallas import window_block_fused
+from nuhtc_tpu_torch.models import swin as port_swin
 from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops.window_block import window_block, window_block_plain
 from torch_port_util import f32, n, port_sd, t
@@ -74,6 +80,45 @@ def _block_case(shift: bool):
     torch_args = [t(np.asarray(a).T if i in kernels else np.asarray(a))
                   for i, a in enumerate(jax_args)]
     return jax_args, torch_args, dict(ws=ws, num_heads=nh, shift=s)
+
+
+def test_drop_path_training_matches_jax(monkeypatch):
+    rng = np.random.RandomState(1)
+    img = rng.randn(3, 32, 28, 3).astype(np.float32)
+    masks = [rng.rand(3, 1, 1, 1) < 0.75 for _ in range(8)]  # 4 blocks × 2 branches
+    calls = {"jax": 0, "port": 0}
+
+    def jax_bernoulli(key, p, shape):
+        calls["jax"] += 1
+        return jnp.asarray(masks[calls["jax"] - 1])
+
+    def port_keep(gen, shape, keep, device):
+        calls["port"] += 1
+        return torch.from_numpy(masks[calls["port"] - 1]).to(device)
+
+    jsw = JaxSwin(**CFG, drop_path_rate=0.3, out_indices=(0, 1))
+    with f32():
+        variables = jax.jit(jsw.init)(jax.random.PRNGKey(0), jnp.asarray(img))
+        monkeypatch.setattr(jax.random, "bernoulli", jax_bernoulli)
+        want = jsw.apply(variables, jnp.asarray(img), deterministic=False,
+                         rngs={"dropout": jax.random.PRNGKey(1)})
+    monkeypatch.setattr(port_swin, "keep_mask", port_keep)
+    model = SwinTransformer(**CFG, drop_path_rate=0.3, out_indices=(0, 1))
+    model.load_state_dict(port_sd("backbone", variables, "backbone."), strict=True)
+    rates = [b.drop_path_rate for st in model.stages for b in st.blocks]
+    np.testing.assert_allclose(rates, np.linspace(0, 0.3, 4))
+    model.train()
+    with torch.no_grad():
+        got = model(t(img), torch.Generator())
+        with pytest.raises(ValueError, match="Generator"):
+            model(t(img))
+    assert calls == {"jax": 6, "port": 6}  # the first block's rate is 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(n(g), np.asarray(w), atol=1e-4, rtol=0)
+    model.eval()
+    with torch.no_grad():
+        plain = model(t(img))
+    assert not np.allclose(n(plain[1]), np.asarray(want[1]), atol=1e-3)
 
 
 @pytest.mark.parametrize("shift", [False, True])
