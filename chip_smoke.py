@@ -122,13 +122,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      map's gradient scale, bf16 within 2⁻⁷ of the f32 plain gradients'
      scale) and K4's forward and backward time a step against the bound and
      the plain version.
+ 13. the semi-supervised recipe (``phase_semi``), configs/nuhtc/semi_base.py
+     as shipped (Mask R-CNN, Swin-T, FPN 64, 8 classes) on a synthetic NuCLS
+     release written by the phase: serving at B16 in WSI mode and on the
+     strict path (12 K1 and 8 K4 a forward, no K2 or K3; tiles/s), the
+     strict path against f32 plain on the card (matched detections);
+     ``tools.train.main`` at B8 (4 labelled + 4 unlabelled, bf16 autocast)
+     for two epochs of 3 steps and a resumed third, teacher and student
+     evaluated each epoch (12 K1, 24 K4, 12 K4 backward a step asserted;
+     the momentum ramp, burn-in, pseudo boxes, the teacher's K1 pack
+     rebuilt after every EMA write); teacher and student through
+     ``init_detector(use_ema=)``; the trained teacher's blocks through K1
+     against the plain tier; K4 at a serving forward's and a train step's
+     calls against its plain version; s/step with its split (loader wait,
+     teacher forward, student forward, backward, optimizer + EMA), the idle
+     share over 3 profiled steps, the peak memory.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
 (``ms``, as for K1 and K2) and as the card's time alone, from 20 calls
 replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
-by path: wsi, strict, slide, embed, eval, patch, robustness, train; K4's
+by path: wsi, strict, slide, embed, eval, patch, robustness, train,
+semi_serve, semi_train; K4's
 backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
@@ -1578,6 +1594,432 @@ def phase_train(device, tmp, ctx):
                         forward_ms=fwd_ms, forward_bound_ms=bound_f)
 
 
+SEMI_CONFIG = os.path.join(REPO, "configs", "nuhtc", "semi_base.py")
+SEMI_SPLITS = (("train", 16), ("unlabeled", 16), ("test", 8))  # tiles of the NuCLS release
+SEMI_ITERS = 3  # steps an epoch of phase_semi
+SEMI_BATCH = 8  # samples_per_gpu of semi_base.py: 4 labelled + 4 unlabelled
+# bf16 against f32 on detections matched one to one (same label, IoU > 0.5):
+# a score within 0.05 (bf16 rounds each product to 2^-8 relative, over ~40
+# layers) and a median IoU of 0.95; a box's corners are not bounded one by
+# one: a class-specific delta's bf16 error grows by exp(dw), and random
+# weights give boxes of a few pixels
+SEMI_SCORE_TOL, SEMI_IOU_MEDIAN = 0.05, 0.95
+
+
+def _match(got, want, iou_thr=0.5):
+    """Greedy one-to-one matching of two detection sets of a tile (same
+    label, box IoU > iou_thr, in want's score order) → (got index, want
+    index, IoU) triples."""
+    pairs, free = [], np.ones(len(got["scores"]), bool)
+    if not len(got["scores"]) or not len(want["scores"]):
+        return pairs
+    a, b = got["boxes"].astype(np.float64), want["boxes"].astype(np.float64)
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)
+    area = lambda x: np.prod(np.clip(x[:, 2:] - x[:, :2], 0, None), -1)  # noqa: E731
+    iou = inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-12)
+    for wi in np.argsort(-want["scores"], kind="stable"):
+        cand = np.where(free & (got["labels"] == want["labels"][wi]) & (iou[:, wi] > iou_thr))[0]
+        if len(cand):
+            gi = cand[np.argmax(iou[cand, wi])]
+            free[gi] = False
+            pairs.append((int(gi), int(wi), float(iou[gi, wi])))
+    return pairs
+
+
+def _check_semi_k4(calls, backward: bool):
+    """K4 at the calls captured from the semi paths (one map a call, the
+    Mask R-CNN's multilevel extractor) against the plain version: the
+    forward in the maps' type against ``roi_align_plain`` on their f32
+    copies (bf16: 2^-7 of the map's largest magnitude; f32: 1e-4), and
+    with ``backward`` the gradient against autograd through the plain
+    version (2^-7 of its scale in bf16). Returns the largest errors."""
+    import torch
+    from nuhtc_tpu_torch.ops import roi_align as ra
+
+    err_f = err_b = 0.0
+    for feat, rois, scale, out_size, ratio in calls:
+        got = ra.roi_align(feat, rois, scale, out_size, sampling_ratio=ratio)
+        want = ra.roi_align_plain(feat.float(), rois, scale, out_size, ratio)
+        tol = (2.0 ** -7 if feat.dtype == torch.bfloat16 else 1e-4) * max(
+            feat.abs().max().item(), 1e-30)
+        e = (got.float() - want).abs().max().item()
+        if not np.isfinite(e) or e > tol:
+            raise AssertionError(f"K4 at a semi call {tuple(feat.shape)} R{rois.shape[1]} out "
+                                 f"{out_size}: err {e} > {tol}")
+        err_f = max(err_f, e / max(feat.abs().max().item(), 1e-30))
+        if backward:
+            gen = torch.Generator(device=feat.device).manual_seed(out_size)
+            g = torch.randn(got.shape, generator=gen, device=feat.device).to(feat.dtype)
+            shapes = [tuple(feat.shape)]
+            grads, _ = ra.roi_align_sum_backward(g, shapes, rois, [scale], out_size, [ratio],
+                                                 [None], False)
+            ref, _ = ra.roi_align_sum_backward_plain(g.float(), shapes, rois, [scale], out_size,
+                                                     [ratio], [None], False)
+            s = max(ref[0].abs().max().item(), 1e-30)
+            e = (grads[0].float() - ref[0]).abs().max().item() / s
+            if not np.isfinite(e) or e > 2.0 ** -7:
+                raise AssertionError(f"K4 backward at a semi train call {tuple(feat.shape)} "
+                                     f"R{rois.shape[1]} out {out_size}: err {e} of the scale")
+            err_b = max(err_b, e)
+    return err_f, err_b
+
+
+def phase_semi(device, tmp):
+    """The semi-supervised recipe, configs/nuhtc/semi_base.py as shipped
+    (Mask R-CNN, Swin-T 96, depths 2-2-6-2, FPN 64, 8 classes), on a
+    synthetic NuCLS release written here (``tools.synthetic.synthetic_nucls``:
+    ``synthetic_pannuke`` tiles of 256², their five classes relabelled onto
+    the eight, every other annotation box-only, an unlabelled split used as
+    such through ``filter_empty=False``). (a) serving: ``init_detector`` at
+    B16 on 256² tiles rescaled to 512², bf16, in WSI mode and on the strict
+    path, class 0's logit raised by 3 (``lift_objectness``): detections > 0,
+    12 K1, 8 K4 and no K2 or K3 launch a forward, tiles/s; the strict path
+    against the same weights in f32 on the card with the Swin tier "none"
+    and ``roi_align_plain`` in place of K4, on the same bf16-rounded
+    weights: ≥ 80 % of the f32 detections matched one to one (same label,
+    IoU > 0.5), their scores within SEMI_SCORE_TOL, the pairs' median IoU
+    ≥ SEMI_IOU_MEDIAN. (b) training: ``tools.train.main`` on the config at
+    its B8 (4 labelled + 4 unlabelled, 256² as the empty train pipeline
+    leaves them, bf16 autocast), pseudo labels from every detection the
+    teacher keeps (``semi_wrapper.score_thr`` 0.05) and burn-in 1 step, two
+    epochs of SEMI_ITERS steps with a checkpoint and an evaluation of the
+    teacher and the student each, then ``--resume-from`` a third epoch:
+    every loss finite; ``ema_momentum`` 0 at step 0 and > 0 after; the
+    unsupervised terms weighted 0 at step 0 and 2 after; pseudo boxes > 0;
+    per step 12 K1 (the teacher), 24 K4 forwards and 12 K4 backwards, per
+    evaluation forward 12 K1 and 8 K4, no K2 or K3; K1's parameter pack of
+    the teacher rebuilt after every EMA write. (c) ``init_detector(ckpt,
+    use_ema=True/False)``: the teacher's and the student's weights, one
+    ``run_batch`` each. (d) after the EMA writes, every Swin block of the
+    teacher through K1 against its plain tier on the block's own input from
+    a teacher forward, within phase_swin_kernel's 0.05 (× the output's
+    scale where above 1). (e) s/step and its split (loader wait, teacher
+    forward, student forward, backward, optimizer + EMA), the idle share
+    over 3 profiled steps and the peak memory. K4 at the captured calls of
+    a serving forward and of a train step against its plain version
+    (forward; backward on the train calls). Returns (launches of the
+    serving paths, launches of training)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.data.coco import build_dataset
+    from nuhtc_tpu_torch.data.loader import SemiPrefetchLoader
+    from nuhtc_tpu_torch.data.pipelines import IMG_NORM, build_train_pipeline
+    from nuhtc_tpu_torch.models import roi_extractor, semi
+    from nuhtc_tpu_torch.models.build import build_detector
+    from nuhtc_tpu_torch.ops import roi_align as ra
+    from nuhtc_tpu_torch.tools import train as train_tool
+    from nuhtc_tpu_torch.tools.synthetic import lift_objectness, synthetic_nucls, synthetic_tiles
+    from nuhtc_tpu_torch.train.train_state import (
+        create_semi_train_state, lr_schedule, make_semi_train_step)
+    from nuhtc_tpu_torch.utils import checkpoint as ckpt
+    from nuhtc_tpu_torch.utils.imageio import read_image
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "nucls")
+    opts = synthetic_nucls(root, SEMI_SPLITS, size=TILE, seed=0)
+    log(f"semi: synthetic NuCLS release {dict(SEMI_SPLITS)} tiles of {TILE}² in "
+        f"{time.perf_counter() - t0:.1f} s; config {os.path.basename(SEMI_CONFIG)} as shipped")
+
+    # K4's calls (one map each) of a forward / a train step, for the check against plain
+    captured = {"serve": [], "train": []}
+    plain_align = roi_extractor.roi_align
+    which = ["serve"]
+
+    def capturing_align(feat, rois, scale, out_size, sampling_ratio=0, max_grid=8):
+        out = plain_align(feat, rois, scale, out_size, sampling_ratio=sampling_ratio,
+                          max_grid=max_grid)
+        calls = captured[which[0]]
+        if feat.is_cuda and len(calls) < 8 and (which[0] == "serve" or out.grad_fn is not None):
+            calls.append((feat.detach().clone(), rois.detach().clone(), scale, out_size,
+                          sampling_ratio))
+        return out
+
+    # (a) serving, both contracts
+    rng = np.random.RandomState(2)
+    batches = [synthetic_tiles(rng, BATCH, TILE) for _ in range(3)]
+    serve_counts = {}
+    for mode, kw in (("WSI mode", dict(device_preprocess=True, compact_masks=True)),
+                     ("strict path", {})):
+        engine = init_detector(SEMI_CONFIG, None, batch_size=BATCH, **kw)
+        lift_objectness(engine.model)
+        engine.run_batch(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        roi_extractor.roi_align = capturing_align
+        try:
+            t0 = time.perf_counter()
+            results = [engine.run_batch(b) for b in batches[1:]]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            roi_extractor.roi_align = plain_align
+        counts = read_counts()
+        forwards = len(batches) - 1
+        if (counts["window_block"] != 12 * forwards or counts["roi_align"] != 8 * forwards
+                or counts["window_attention"] or counts["component_stats"]
+                or counts["roi_align_backward"]):
+            raise AssertionError(f"semi (a) {mode}: launches over {forwards} forwards: {counts}")
+        n_det = sum(len(r["scores"]) for res in results for r in res)
+        for res in results:
+            for r in res:
+                check_detections(r["boxes"], r["scores"])
+                if r["probs"].shape[1:] != (8,) or r["masks"].shape[1:] != (TILE, TILE):
+                    raise AssertionError(f"semi (a) {mode}: probs {r['probs'].shape} masks "
+                                         f"{r['masks'].shape}")
+        if not n_det:
+            raise AssertionError(f"semi (a) {mode}: no detection")
+        tiles = BATCH * forwards
+        log(f"semi (a) {mode} (tier block): {tiles} tiles in {dt:.3f} s = {tiles / dt:.2f} "
+            f"tiles/s (B{BATCH}, 512² input, bf16); {n_det / tiles:.2f} detections/tile; "
+            f"launches {counts}")
+        serve_counts = {k: serve_counts.get(k, 0) + v for k, v in counts.items()}
+    bf16_res = results[0]
+
+    # the strict path in f32 on the card, plain Swin tier and plain K4
+    ref = init_detector(SEMI_CONFIG, None, batch_size=BATCH, dtype=torch.float32,
+                        swin_kernel="none")
+    lift_objectness(ref.model)
+    with torch.no_grad():  # the card path's weights, rounded to bf16, in f32
+        for p in ref.model.parameters():
+            p.copy_(p.bfloat16().float())
+    roi_extractor.roi_align = (lambda feat, rois, scale, out_size, sampling_ratio=0, max_grid=8:
+                               ra.roi_align_plain(feat, rois, scale, out_size, sampling_ratio,
+                                                  max_grid))
+    reset_counts()
+    try:
+        f32_res = ref.run_batch(batches[1])
+    finally:
+        roi_extractor.roi_align = plain_align
+    if any(read_counts().values()):
+        raise AssertionError(f"semi (a) the plain f32 path launched a kernel: {read_counts()}")
+    del ref
+    total, d_score, ious = 0, [], []
+    for g, w in zip(bf16_res, f32_res):
+        total += len(w["scores"])
+        for gi, wi, iou in _match(g, w):
+            d_score.append(abs(float(g["scores"][gi]) - float(w["scores"][wi])))
+            ious.append(iou)
+    rate = len(ious) / max(total, 1)
+    d_score, ious = np.asarray(d_score or [np.inf]), np.asarray(ious or [0.0])
+    log(f"semi (a) strict path bf16 (K1, K4) vs f32 plain on the card, the same bf16-rounded "
+        f"weights: {len(ious)} of {total} detections matched ({rate:.3f}); |Δscore| median "
+        f"{np.median(d_score):.4f}, max {d_score.max():.4f}; box IoU of the pairs median "
+        f"{np.median(ious):.4f}, min {ious.min():.4f} (allowed: ≥ 0.8 matched, |Δscore| ≤ "
+        f"{SEMI_SCORE_TOL}, median IoU ≥ {SEMI_IOU_MEDIAN})")
+    if rate < 0.8 or d_score.max() > SEMI_SCORE_TOL or np.median(ious) < SEMI_IOU_MEDIAN:
+        raise AssertionError("semi (a): the bf16 card path disagrees with the f32 plain path")
+
+    # (b) training through tools.train, then a resumed third epoch
+    work = os.path.join(tmp, "semi_work")
+    ck_dir = os.path.join(work, "checkpoints")
+    options = dict(opts, **{"semi_wrapper.score_thr": 0.05, "semi_wrapper.burn_in": 1,
+                            "log_interval": 1, "checkpoint_interval": 1,
+                            "evaluation.interval": 1})
+    argv = [SEMI_CONFIG, "--work-dir", work, "--iters-per-epoch", str(SEMI_ITERS), "--seed", "0",
+            "--cfg-options", *[f"{k}={v}" for k, v in options.items()]]
+    pseudo, packs, wrappers = [], [], []
+    plain_label = semi.MultiStreamDetector.pseudo_label
+
+    def counting_label(self, img):
+        out = plain_label(self, img)
+        pseudo.append(int(out["gt_valid"].sum()))
+        blk = self.teacher.backbone.stages[2].blocks[0]
+        # the teacher's K1 pack: rebuilt for this step's weights, none stale
+        packs.append((blk._params.key, blk.kernel_params() is blk._params))
+        if not wrappers or wrappers[-1] is not self:
+            wrappers.append(self)
+        return out
+
+    timing = []
+    semi.MultiStreamDetector.pseudo_label = counting_label
+    roi_extractor.roi_align = capturing_align
+    which[0] = "train"
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        state = train_tool.main(argv + ["--max-epochs", "2"],
+                                trainer_kw=dict(record_timing=timing))
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        roi_extractor.roi_align = plain_align
+        counts_b = read_counts()
+        reset_counts()
+        state = train_tool.main(argv + ["--max-epochs", "3", "--resume-from",
+                                        ckpt.checkpoint_file(ck_dir, 2)])
+        torch.cuda.synchronize()
+        counts_r = read_counts()
+    finally:
+        semi.MultiStreamDetector.pseudo_label = plain_label
+        roi_extractor.roi_align = plain_align
+    steps = 2 * SEMI_ITERS
+    evals = 2 * 2 * -(-SEMI_SPLITS[2][1] // SEMI_BATCH)  # epochs × (teacher, student) × batches
+
+    def expect(n_steps, n_evals):
+        return dict(window_block=12 * (n_steps + n_evals), window_attention=0,
+                    component_stats=0, roi_align=24 * n_steps + 8 * n_evals,
+                    roi_align_backward=12 * n_steps)
+
+    if counts_b != expect(steps, evals) or counts_r != expect(SEMI_ITERS, evals // 2):
+        raise AssertionError(f"semi (b) launches: {counts_b} (want {expect(steps, evals)}), "
+                             f"resumed {counts_r} (want {expect(SEMI_ITERS, evals // 2)})")
+    if state.step != 3 * SEMI_ITERS or state.opt_state.count != state.step:
+        raise AssertionError(f"semi (b): resumed to step {state.step}")
+    keys = [k for k, _ in packs]
+    if (len(packs) != 3 * SEMI_ITERS or not all(fresh for _, fresh in packs)
+            or len(set(keys[:steps])) != steps or len(set(keys[steps:])) != SEMI_ITERS):
+        raise AssertionError(f"semi (b): the teacher's K1 pack was not rebuilt after each EMA "
+                             f"write ({len(set(keys))} distinct of {len(packs)})")
+    if sum(pseudo[1:]) <= 0:
+        raise AssertionError(f"semi (b): no pseudo box after burn-in: {pseudo}")
+    rows, val_rows = _train_rows(work)
+    unsup_keys = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox")
+    loss_keys = [k for k in rows[0] if ".loss_" in k]
+    bad = [(i, k) for i, r in enumerate(rows) for k in loss_keys + ["total", "grad_norm"]
+           if not np.isfinite(r[k])]
+    gated = [r["total"] - r["sup.total"] - (0.0 if i == 0 else 2.0) * sum(
+        r[f"unsup.{k}"] for k in unsup_keys) for i, r in enumerate(rows[:steps])]
+    if (len(rows) != 3 * SEMI_ITERS or len(loss_keys) != 12 or bad
+            or rows[0]["ema_momentum"] != 0.0 or min(r["ema_momentum"] for r in rows[1:]) <= 0
+            or max(abs(x) for x in gated) > 1e-3 * max(abs(r["total"]) for r in rows)
+            or [(r["epoch"], r["tag"]) for r in val_rows] != [
+                (e, t) for e in (1, 2, 3) for t in ("teacher", "student")]
+            or sorted(os.listdir(ck_dir)) != ["step_1.pt", "step_2.pt", "step_3.pt"]):
+        raise AssertionError(f"semi (b): rows {len(rows)}, losses {loss_keys}, non-finite "
+                             f"{bad[:4]}, momentum {[r['ema_momentum'] for r in rows]}, gating "
+                             f"{gated}, val {[(r['epoch'], r['tag']) for r in val_rows]}, "
+                             f"{sorted(os.listdir(ck_dir))}")
+    blob = ckpt.read_checkpoint(ck_dir)
+    lag = max((v - blob["student_params"][k]).abs().max().item()
+              for k, v in blob["teacher_params"].items())
+    if not lag > 0:
+        raise AssertionError("semi (b): the teacher equals the student after training")
+    warm = timing[1:]
+    split = {k: float(np.mean([t_[k] for t_ in warm]))
+             for k in ("loader_wait_s", "teacher_s", "forward_s", "backward_s", "optimizer_s")}
+    step_s = sum(split.values())
+    log(f"semi (b) tools.train on {device}: {steps} steps + {evals} evaluation forwards + 2 "
+        f"checkpoints in {wall_b:.3f} s; per step (steps 2-{steps}, synchronized) {step_s:.4f} s "
+        f"= {SEMI_BATCH / step_s:.2f} img/s: loader wait {split['loader_wait_s']:.4f} s, "
+        f"teacher forward {split['teacher_s']:.4f} s, student forward {split['forward_s']:.4f} "
+        f"s, backward {split['backward_s']:.4f} s, optimizer + EMA {split['optimizer_s']:.4f} s;"
+        f" the first step {sum(timing[0].values()):.3f} s")
+    log("semi (b) losses of the last step: " + ", ".join(
+        f"{k} {rows[-1][k]:.4f}" for k in ["total"] + loss_keys) + f", grad_norm "
+        f"{rows[-1]['grad_norm']:.3f}, ema_momentum {[round(r['ema_momentum'], 4) for r in rows]}; "
+        f"pseudo boxes a step {pseudo}; teacher - student max |Δ| {lag:.3e}; eval pq "
+        f"{[round(r.get('pq', float('nan')), 4) for r in val_rows]}; launches {counts_b}, "
+        f"resumed epoch {counts_r}")
+
+    # (c) the teacher's and the student's weights through init_detector
+    cfg = Config.fromfile(SEMI_CONFIG)
+    cfg.merge_from_options(options)
+    test_ds = build_dataset({**cfg.data.test, "test_mode": True})
+    tiles = [read_image(test_ds.img_path(i)) for i in range(len(test_ds))][:SEMI_BATCH]
+    counts_c = {}
+    for use_ema, key in ((True, "teacher_params"), (False, "student_params")):
+        reset_counts()
+        engine = init_detector(SEMI_CONFIG, ck_dir, batch_size=SEMI_BATCH, use_ema=use_ema)
+        own = engine.model.state_dict()
+        if any(not torch.equal(own[k].float().cpu(), v.to(own[k].dtype).float())
+               for k, v in blob[key].items()):
+            raise AssertionError(f"semi (c): init_detector(use_ema={use_ema}) holds other "
+                                 "weights")
+        res = engine.run_batch(tiles)
+        torch.cuda.synchronize()
+        c = read_counts()
+        if c["window_block"] != 12 or c["roi_align"] != 8 or len(res) != len(tiles):
+            raise AssertionError(f"semi (c) use_ema={use_ema}: launches {c}")
+        for r in res:
+            check_detections(r["boxes"], r["scores"])
+        counts_c = {k: counts_c.get(k, 0) + v for k, v in c.items()}
+        log(f"semi (c) init_detector(step_3, use_ema={use_ema}: {key[:-7]}) + run_batch of "
+            f"{len(tiles)} tiles: {sum(len(r['scores']) for r in res)} detections; launches {c}")
+        del engine
+    serve_counts = {k: serve_counts[k] + counts_c[k] for k in serve_counts}
+
+    # (d) the trained teacher's Swin blocks: K1 against the plain tier
+    teacher = wrappers[-1].teacher
+    x = torch.from_numpy(np.stack([(t_ - np.float32(IMG_NORM["mean"])) / np.float32(
+        IMG_NORM["std"]) for t_ in tiles]).astype(np.float32)).to(device)
+    inputs = []
+    hooks = [blk.register_forward_pre_hook(lambda m, a: inputs.append((m, a[0].detach())))
+             for stage in teacher.backbone.stages for blk in stage.blocks]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        teacher.backbone(x)
+    for h in hooks:
+        h.remove()
+    err_d = 0.0
+    for blk, inp in inputs:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            got = blk(inp)
+            blk.kernel = "none"
+            want = blk(inp)
+            blk.kernel = "block"
+        scale = want.float().abs().max().item()
+        e = (got.float() - want.float()).abs().max().item()
+        if not np.isfinite(e) or e > K1_TOL * max(1.0, scale):
+            raise AssertionError(f"semi (d): teacher block {tuple(inp.shape)} K1 vs plain tier "
+                                 f"err {e} (outputs up to {scale:.2f})")
+        err_d = max(err_d, e / max(1.0, scale))
+    log(f"semi (d) the trained teacher's {len(inputs)} Swin blocks through K1 vs the plain tier "
+        f"on their own inputs (bf16 autocast): max err {err_d:.4f} of max(1, scale) "
+        f"(allowed {K1_TOL})")
+
+    # K4 at the captured calls of a serving forward and of a train step
+    e_serve, _ = _check_semi_k4(captured["serve"], backward=False)
+    e_train, e_back = _check_semi_k4(captured["train"], backward=True)
+    log(f"semi K4 at {len(captured['serve'])} calls of a serving forward and {len(captured['train'])}"
+        f" of a train step vs plain: forward err {max(e_serve, e_train):.5f} of the map scale, "
+        f"backward {e_back:.5f} of the gradient scale (allowed 2^-7 = {2.0 ** -7:.5f})")
+
+    # (e) 3 profiled steps: idle share and peak memory
+    model = build_detector(cfg.model, cfg.model.get("test_cfg"), float(cfg.get("scale_factor", 2.0)))
+    model.load_state_dict(blob["student_params"])
+    model = model.to(device)
+    wrapper = semi.MultiStreamDetector(model, score_thr=0.05, max_gt=128)
+    st, tx = create_semi_train_state(model, wrapper.teacher, num_stages=1, num_classes=8,
+                                     schedule=lr_schedule(iters_per_epoch=SEMI_ITERS))
+    step_fn = make_semi_train_step(wrapper, tx, unsup_weight=2.0, compute_dtype=torch.bfloat16)
+    loader = SemiPrefetchLoader(build_dataset(cfg.data.train), build_train_pipeline([]),
+                                strong_pipeline=build_train_pipeline(cfg.unsup_strong_pipeline),
+                                batch_size=SEMI_BATCH, sup_ratio=cfg.sup_ratio, seed=5)
+    gen = torch.Generator(device=device)
+    it = iter(loader)
+
+    def one_step():
+        batch = {k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
+        gen.manual_seed(st.step)
+        step_fn(st, batch, gen)
+
+    try:
+        one_step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                one_step()
+            torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated(device)
+    device_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    log(f"semi (e) {PROFILED_STEPS} steps under torch.profiler: {traced:.3f} s, the card's "
+        f"kernels and copies {device_s:.3f} s, idle share {1 - device_s / traced:.3f}; untraced "
+        f"steps (b) {step_s:.4f} s each, idle share against them "
+        f"{1 - device_s / (PROFILED_STEPS * step_s):.3f}; torch.cuda.max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB")
+    train_counts = {k: counts_b[k] + counts_r[k] for k in counts_b}
+    return serve_counts, train_counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1626,8 +2068,11 @@ def main() -> int:
         evaluation, patch, context = phase_eval(device, tmp)
         robustness = phase_robustness(device, tmp, context)
         train, k4_backward = phase_train(device, tmp, context)
+    with tempfile.TemporaryDirectory() as tmp:
+        semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
-                 robustness=robustness, train=train)
+                 robustness=robustness, train=train, semi_serve=semi_serve,
+                 semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

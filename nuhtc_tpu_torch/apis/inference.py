@@ -37,7 +37,8 @@ class InferenceEngine:
     def __init__(self, model, batch_size: int = 8, tile_size: int = 256,
                  scale_factor: Optional[float] = None, paste_masks: bool = True,
                  device_preprocess: bool = False, compact_masks: bool = False):
-        """``model``: a NuHTC module, already on its device and dtype.
+        """``model``: a detector (NuHTC or MaskRCNN), already on its device
+        and dtype.
         ``device_preprocess``: upload uint8 tiles and resize + normalize on
         the device. ``compact_masks``: one int32 instance label map per tile
         instead of N full-frame masks (overlapping pixels go to the
@@ -249,7 +250,8 @@ def init_detector(config: str | Config, checkpoint: Optional[str] = None,
     defaults to bf16 on CUDA and f32 on the CPU. ``checkpoint``: a reference
     (mmdet-named) ``.pth``, or a checkpoint of the port's trainer (a
     ``step_<n>.pt`` file or its directory, whose newest step is read), whose
-    EMA weights are taken when ``use_ema`` and the raw ones otherwise.
+    EMA weights (a semi run's teacher) are taken when ``use_ema`` and the
+    raw ones (the student) otherwise.
     Without a checkpoint the weights are random, from seed 0. ``scale_factor`` overrides the config's
     test rescale; it is baked into the model so boxes come back in the tile
     frame. ``swin_kernel``: the Swin block's kernel tier on CUDA, "block"

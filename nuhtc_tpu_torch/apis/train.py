@@ -34,20 +34,28 @@ def train_detector(model, dataset, cfg, work_dir: str, test_dataset=None,
                    compute_dtype: Optional[torch.dtype] = None, **trainer_kw):
     """The loader and ``Trainer`` as tools/train.py builds them:
     ``samples_per_gpu`` from the config (or ``data.samples_per_gpu``),
-    iterations per epoch from the dataset's size. ``model``: a NuHTC module
-    on its device, f32; ``compute_dtype``: bf16 on the card. Returns the
-    final train state."""
-    from nuhtc_tpu_torch.data.loader import PrefetchLoader, SemiDataset
+    iterations per epoch from the dataset's size; a ``SemiDataset`` takes the
+    ``SemiPrefetchLoader`` with ``sup_ratio`` and ``unsup_strong_pipeline``.
+    ``model``: the detector on its device, f32; ``compute_dtype``: bf16 on
+    the card. Returns the final train state.
+
+    As in the JAX package, a config without ``train_pipeline`` (the semi
+    template) gets an empty pipeline: its supervised images reach the model
+    as raw 0-255 pixels, while the unlabelled views are normalized."""
+    from nuhtc_tpu_torch.data.loader import PrefetchLoader, SemiDataset, SemiPrefetchLoader
     from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
     from nuhtc_tpu_torch.train.trainer import Trainer
 
-    if isinstance(dataset, SemiDataset):
-        raise NotImplementedError("train_detector: semi-supervised datasets wait for the port "
-                                  "of the semi path (ROADMAP Queue 1 item 14)")
     pipeline = build_train_pipeline(cfg.get("train_pipeline", []))
     batch_size = cfg.get("samples_per_gpu", None) or cfg.get("data", {}).get(
         "samples_per_gpu", 8)
-    loader = PrefetchLoader(dataset, pipeline, batch_size=batch_size, seed=seed)
+    if isinstance(dataset, SemiDataset):
+        strong = cfg.get("unsup_strong_pipeline")
+        loader = SemiPrefetchLoader(
+            dataset, pipeline, strong_pipeline=build_train_pipeline(strong) if strong else None,
+            batch_size=batch_size, sup_ratio=cfg.get("sup_ratio", 0.5), seed=seed)
+    else:
+        loader = PrefetchLoader(dataset, pipeline, batch_size=batch_size, seed=seed)
     trainer_kw.setdefault("max_epochs", cfg.get("max_epochs", 200))
     trainer_kw.setdefault("iters_per_epoch", max(len(dataset) // batch_size, 1))
     trainer_kw.setdefault("checkpoint_interval", cfg.get("checkpoint_interval", 10))

@@ -13,8 +13,9 @@ threaded prefetch loader (port of nuhtc_tpu/data/loader.py):
   semantic map), the same dict the JAX package builds;
 - ``PrefetchLoader``: host threads build batches while the card trains;
   batch k is built from ``np.random.RandomState(seed + k)`` and batches come
-  out in order, so a seed gives the same sequence whatever the threads do.
-  The semi-supervised loader waits for the semi path.
+  out in order, so a seed gives the same sequence whatever the threads do;
+- ``SemiPrefetchLoader``: the teacher/student batches, supervised samples
+  beside unlabelled images in a weak and a strong view.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from nuhtc_tpu_torch.data.pipelines import run_pipeline
+from nuhtc_tpu_torch.data.pipelines import Normalize, PhotoMetricDistortion, run_pipeline
 from nuhtc_tpu_torch.ops import imgproc
 from nuhtc_tpu_torch.ops import rle as rle_ops
 
@@ -234,3 +235,69 @@ class PrefetchLoader:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=10.0)
+
+
+class SemiPrefetchLoader(PrefetchLoader):
+    """Threaded loader for teacher/student training (reference
+    DistributedGroupSemiBalanceSampler + MultiBranch unsup_teacher /
+    unsup_student pipelines, configs/nuhtc/base.py:180-222).
+
+    Each batch holds ``round(batch_size · sup_ratio)`` supervised samples
+    (``collate_train``'s targets, through ``pipeline``) and the rest as
+    unlabelled images at the supervised batch's size (a random crop, or a
+    linear resize of a smaller image) in two aligned views:
+    ``unsup_img_teacher`` (weak: normalized only) and ``unsup_img`` (strong:
+    ``strong_pipeline``, PhotoMetricDistortion by default, on the raw
+    pixels, then normalized), both with the ``Normalize`` of ``pipeline``
+    (its default when ``pipeline`` has none). Batch k is built from
+    ``RandomState(seed + k)``, the supervised samples first, as the JAX
+    loader draws them. An unlabelled dataset of length 0 (a json without
+    annotations loses every image to ``filter_empty``) falls back to the
+    supervised images, as in the JAX package."""
+
+    def __init__(self, semi_dataset, pipeline, strong_pipeline=None, batch_size: int = 8,
+                 sup_ratio: float = 0.5, max_gt: int = 160, seed: int = 0,
+                 num_threads: int = 2, prefetch: int = 4):
+        n_sup = max(int(round(batch_size * sup_ratio)), 1)
+        self.n_unsup = batch_size - n_sup
+        if self.n_unsup <= 0:
+            raise ValueError(f"SemiPrefetchLoader needs sup_ratio < 1 to leave room for unsup "
+                             f"samples (batch_size={batch_size}, sup_ratio={sup_ratio})")
+        super().__init__(semi_dataset.sup, pipeline, batch_size=n_sup, max_gt=max_gt, seed=seed,
+                         num_threads=num_threads, prefetch=prefetch, class_aware=False)
+        self.sup = semi_dataset.sup
+        self.unsup = semi_dataset.unsup or semi_dataset.sup
+        self.strong = strong_pipeline if strong_pipeline is not None else [PhotoMetricDistortion()]
+        self._norm = next((t for t in (pipeline or []) if isinstance(t, Normalize)), Normalize())
+
+    def _unsup_views(self, idx: int, hs: int, ws: int, rng: np.random.RandomState):
+        """One unlabelled image → (weak, strong) views of (hs, ws)."""
+        img = self.unsup.load_image(idx).astype(np.float32)
+        h, w = img.shape[:2]
+        if (h, w) != (hs, ws):
+            if h >= hs and w >= ws:  # random crop
+                y0 = rng.randint(h - hs + 1)
+                x0 = rng.randint(w - ws + 1)
+                img = img[y0:y0 + hs, x0:x0 + ws]
+            else:
+                img = imgproc.resize_linear_f32(np.ascontiguousarray(img), (hs, ws))
+        # the photometric augmentations take raw 0-255 pixels; both views are
+        # then normalized as the supervised pipeline normalizes
+        res = dict(img=img.copy(), gt_bboxes=np.zeros((0, 4), np.float32),
+                   gt_labels=np.zeros((0,), np.int64))
+        strong_raw = run_pipeline(self.strong, res, rng)["img"]
+        return self._norm({"img": img})["img"], self._norm({"img": strong_raw})["img"]
+
+    def make_batch(self, seq: int) -> Dict[str, np.ndarray]:
+        rng = np.random.RandomState(self.seed + seq)
+        samples = [sample_train_valid(self.sup, lambda r: r.randint(len(self.sup)),
+                                      self.pipeline, rng) for _ in range(self.batch_size)]
+        batch = collate_train(samples, max_gt=self.max_gt)
+        hs, ws = batch["img"].shape[1:3]
+        weak = np.zeros((self.n_unsup, hs, ws, 3), np.float32)
+        strong = np.zeros((self.n_unsup, hs, ws, 3), np.float32)
+        for i in range(self.n_unsup):
+            weak[i], strong[i] = self._unsup_views(rng.randint(len(self.unsup)), hs, ws, rng)
+        batch["unsup_img"] = strong
+        batch["unsup_img_teacher"] = weak
+        return batch

@@ -1,8 +1,12 @@
 """Build the port's detector from the reference-style config tree, read as
-nuhtc_tpu/models/build.py reads it (lite HTC schema only)."""
+nuhtc_tpu/models/build.py reads it: the HTC schema (lite roi head) maps onto
+NuHTC; any other ``type`` is a registered detector (``DETECTORS``, e.g.
+MaskRCNN) built from the config keys that are its constructor arguments."""
 
 from __future__ import annotations
 
+import inspect
+import logging
 from typing import Any, Dict
 
 import torch
@@ -10,20 +14,51 @@ from torch import nn
 
 from nuhtc_tpu_torch.models.detector import NuHTC
 from nuhtc_tpu_torch.models.layers import NormedLinear
+from nuhtc_tpu_torch.models.mask_rcnn import MaskRCNN  # noqa: F401  (registers it)
 from nuhtc_tpu_torch.models.swin import WindowMSA
+from nuhtc_tpu_torch.registry import DETECTORS
 
 _BACKBONE_KEYS = ("embed_dims", "depths", "num_heads", "window_size", "mlp_ratio", "qkv_bias",
                   "qk_scale", "patch_norm", "out_indices", "patch_size", "drop_path_rate")
 
 
+def _build_registered(mtype: str, model_cfg: Dict[str, Any], test_cfg, scale_factor: float,
+                      swin_kernel: str) -> nn.Module:
+    """A registered detector from the config keys that are its constructor
+    arguments; the reference-style ``test_cfg.rcnn`` fills
+    ``rcnn_score_thr``, ``rcnn_nms_iou``, ``rcnn_max_per_img`` and
+    ``mask_thr_binary`` where the config leaves them out; other keys are
+    logged and dropped."""
+    cls = DETECTORS.get(mtype)
+    fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    kwargs = {k: v for k, v in model_cfg.items() if k in fields}
+    rcnn_tc = dict(dict(test_cfg or model_cfg.get("test_cfg") or {}).get("rcnn") or {})
+    for field, val in (("rcnn_score_thr", rcnn_tc.get("score_thr")),
+                       ("rcnn_nms_iou", dict(rcnn_tc.get("nms") or {}).get("iou_threshold")),
+                       ("rcnn_max_per_img", rcnn_tc.get("max_per_img")),
+                       ("mask_thr_binary", rcnn_tc.get("mask_thr_binary"))):
+        if field in fields and val is not None:
+            kwargs.setdefault(field, val)
+    kwargs.setdefault("scale_factor", scale_factor)
+    if "backbone_cfg" in fields:
+        backbone = {k: v for k, v in dict(kwargs.get("backbone_cfg") or {}).items()
+                    if k in _BACKBONE_KEYS}
+        kwargs["backbone_cfg"] = dict(backbone, kernel=swin_kernel)
+    dropped = set(model_cfg) - set(kwargs) - {"type", "test_cfg"}
+    if dropped:
+        logging.getLogger("nuhtc_tpu_torch").warning(
+            "build_detector %s: ignoring config keys %s", mtype, sorted(dropped))
+    return cls(**kwargs)
+
+
 def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = None,
-                   scale_factor: float = 2.0, swin_kernel: str = "block") -> NuHTC:
+                   scale_factor: float = 2.0, swin_kernel: str = "block") -> nn.Module:
     """``swin_kernel``: the Swin block's kernel tier on a CUDA device,
     "block" (K1), "attn" (K2) or "none" (models/swin.py)."""
     model_cfg = dict(model_cfg)
     mtype = model_cfg.get("type")
     if mtype and mtype not in ("NuHTC", "HybridTaskCascade_Cus"):
-        raise ValueError(f"build_detector: the port builds the NuHTC detector, not {mtype!r}")
+        return _build_registered(mtype, model_cfg, test_cfg, scale_factor, swin_kernel)
     test_cfg = dict(test_cfg or model_cfg.get("test_cfg") or {})
     roi = dict(model_cfg.get("roi_head") or {})
     roi_type = str(roi.get("type", "HybridTaskCascadeRoIHead_Lite"))

@@ -7,6 +7,8 @@ others. ``single_roi_features`` is plain RoIAlign on the semantic map.
 ``stage_roi_features`` is their sum as the detector takes it: one fused
 RoIAlign call (K4 on CUDA tensors) over the fine levels and the semantic
 map, with the attention pools as its per-RoI bias.
+``multilevel_roi_features`` is mmdet's SingleRoIExtractor with
+``map_roi_levels`` (the Mask R-CNN family): each RoI reads one level.
 """
 
 from __future__ import annotations
@@ -61,3 +63,34 @@ def stage_roi_features(feats: Sequence[torch.Tensor], semantic_feat: torch.Tenso
     return roi_align_sum(maps, rois, scales, output_size,
                          [sampling_ratio] * start_level + [0],
                          [None] * start_level + [sem_pool_from], bias=bias, max_grid=max_grid)
+
+
+def roi_levels(rois: torch.Tensor, num_levels: int, finest_scale: float = 56.0
+               ) -> torch.Tensor:
+    """mmdet ``map_roi_levels``: clamp(floor(log2(√(wh) / finest_scale +
+    1e-6)), 0, L-1) per RoI, in f32 as the JAX package computes it (rois
+    (B, R, 4) → (B, R) int64)."""
+    rois = rois.float()
+    scale = torch.sqrt((rois[..., 2] - rois[..., 0]).clamp(min=0.0)
+                       * (rois[..., 3] - rois[..., 1]).clamp(min=0.0))
+    lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    return lvl.clamp(0, num_levels - 1).long()
+
+
+def multilevel_roi_features(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                            output_size: int, sampling_ratio: int = 0,
+                            strides: Sequence[int] = (4, 8, 16, 32),
+                            finest_scale: float = 56.0, max_grid: int = 8) -> torch.Tensor:
+    """feats per-level (B, H, W, C), rois (B, R, 4) → (B, R, out, out, C):
+    each RoI's RoIAlign on the level ``roi_levels`` gives it. As in the JAX
+    package every level is RoIAligned for all RoIs (one ``roi_align`` call,
+    so one K4 launch on CUDA tensors, per level), masked by the level and
+    summed."""
+    lvl = roi_levels(rois, len(strides), finest_scale)
+    out = None
+    for i, (feat, stride) in enumerate(zip(feats, strides)):
+        t = roi_align(feat, rois, 1.0 / stride, output_size, sampling_ratio=sampling_ratio,
+                      max_grid=max_grid)
+        t = t * (lvl == i).to(t.dtype)[:, :, None, None, None]
+        out = t if out is None else out + t
+    return out

@@ -1,12 +1,13 @@
 """String-keyed registries for config-driven construction (port of
 nuhtc_tpu/registry.py: ``Registry`` and the registries the port uses,
-``DATASETS``, ``LOSSES`` and ``PIPELINES``).
+``DETECTORS``, ``DATASETS``, ``LOSSES`` and ``PIPELINES``).
 
 The reference framework wires every component through mmdet registries
 (`@DETECTORS.register_module()` etc.; see reference
 nuhtc/models/__init__.py:1-10). A config names a dataset as
 ``dict(type='PanNukeCocoDataset', ...)``, and ``data.coco.build_dataset``
-looks the class up here.
+looks the class up here, and ``models.build.build_detector`` a detector
+type other than the HTC schema's.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ class Registry:
         return key in self._registry
 
 
-# the port builds its models in models/build.py; datasets, losses and the
-# train pipeline's transforms go by name
+# detectors (other than the HTC schema, which models/build.py maps itself),
+# datasets, losses and the train pipeline's transforms go by name
+DETECTORS = Registry("detectors")
 DATASETS = Registry("datasets")
 LOSSES = Registry("losses")
 PIPELINES = Registry("pipelines")

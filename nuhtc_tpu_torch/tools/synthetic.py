@@ -3,10 +3,12 @@ the stage profile): blob tiles from a seed, and a lift of the objectness
 logit so that random weights yield detections; and the kernels' inputs at
 the main path's shapes (boxes and maps for K4, a blob mask for K3); and a
 whole slide: tissue regions of that blob texture on a near-white ground;
-and a patch dataset in the layout of the PanNuke release."""
+and patch datasets in the layouts of the PanNuke and the NuCLS releases."""
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import numpy as np
@@ -81,10 +83,16 @@ def slide_and_grid(side: int = 2304, seed: int = 0, tile: int = 256, step: int =
 def lift_objectness(model, logit: float = 3.0) -> None:
     """Random weights score no detection above 0.35; raising each cascade
     head's positive-objectness logit lets detections through, so NMS, the
-    mask head and the paste work on real boxes."""
+    mask head and the paste work on real boxes. A Mask R-CNN's one head
+    (no objectness) gets its first class raised instead: its random scores
+    sit near 1/(C+1) for every class, and a dominant class spreads them."""
     with torch.no_grad():
-        for head in model.roi_head.bbox_head:
-            head.fc_cls.bias[head.num_classes] += logit
+        heads = model.roi_head.bbox_head
+        if isinstance(heads, torch.nn.ModuleList):
+            for head in heads:
+                head.fc_cls.bias[head.num_classes] += logit
+        else:
+            heads.fc_cls.bias[0] += logit
 
 
 def roi_boxes(rng, b, r, extent=512.0):
@@ -187,3 +195,53 @@ def synthetic_pannuke(rng: np.random.RandomState, n: int, size: int = 256,
         masks[i, :, :, 5] = ~occupied
         images[i] = np.clip(np.round(img), 0, 255)
     return images, masks, types
+
+
+def synthetic_nucls(root: str, splits=(("train", 8), ("unlabeled", 8), ("test", 4)),
+                    size: int = 256, seed: int = 0) -> dict:
+    """A release in the NuCLS schema of ``configs/nuhtc/semi_base.py`` under
+    ``root``: ``datasets/NuCLS/rgb`` and ``rgb_seg`` PNGs and
+    ``coco/NuCLS/NuCLS_annt_RLE_<split>.json`` for each (split, tiles) of
+    ``splits``, made from ``synthetic_pannuke`` tiles of one seed through
+    ``tools.preprocess_pannuke``: the five PanNuke classes relabelled onto
+    the eight NuCLS ones (annotation k of class c takes class (c + 5·(k mod
+    2)) mod 8), every other annotation box-only (``ismask`` 0), and the
+    "unlabeled" split without annotations. Returns the config options that
+    point ``semi_base.py`` at it, the unlabelled split with ``filter_empty``
+    off (its images have no annotations)."""
+    from nuhtc_tpu_torch.data.classes import dataset_classes
+    from nuhtc_tpu_torch.tools import preprocess_pannuke
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    ds, coco = os.path.join(root, "datasets", "NuCLS"), os.path.join(root, "coco", "NuCLS")
+    cats = [dict(id=c + 1, name=n) for c, n in enumerate(dataset_classes("NuCLSCocoDataset"))]
+    for fold, (split, n) in enumerate(splits, start=1):
+        arrays = synthetic_pannuke(rng, n, size)
+        paths = [os.path.join(root, f"{name}_{split}.npy") for name in ("images", "masks")]
+        for path, arr in zip(paths, arrays):
+            np.save(path, arr)
+        if preprocess_pannuke.main(["--images", paths[0], "--masks", paths[1], "--fold",
+                                    str(fold), "--out-dir", ds, "--coco-dir", coco]) != 0:
+            raise RuntimeError(f"preprocess_pannuke failed on the {split} split")
+        src = os.path.join(coco, f"PanNuke_annt_RLE_fold{fold}.json")
+        with open(src) as f:
+            data = json.load(f)
+        for k, ann in enumerate(data["annotations"]):
+            ann["category_id"] = (ann["category_id"] - 1 + 5 * (k % 2)) % 8 + 1
+            ann["ismask"] = 1 - k % 2
+        if split == "unlabeled":
+            data["annotations"] = []
+        data["categories"] = cats
+        with open(os.path.join(coco, f"NuCLS_annt_RLE_{split}.json"), "w") as f:
+            json.dump(data, f)
+        os.remove(src)
+    return {"data.train.sup.ann_file": os.path.join(coco, "NuCLS_annt_RLE_train.json"),
+            "data.train.sup.img_prefix": os.path.join(ds, "rgb") + "/",
+            "data.train.sup.seg_prefix": os.path.join(ds, "rgb_seg"),
+            "data.train.unsup.ann_file": os.path.join(coco, "NuCLS_annt_RLE_unlabeled.json"),
+            "data.train.unsup.img_prefix": os.path.join(ds, "rgb") + "/",
+            "data.train.unsup.filter_empty": False,
+            "data.test.ann_file": os.path.join(coco, "NuCLS_annt_RLE_test.json"),
+            "data.test.img_prefix": os.path.join(ds, "rgb") + "/",
+            "data.test.seg_prefix": os.path.join(ds, "rgb_seg")}

@@ -1,10 +1,20 @@
 """Timers for one call on the card, used by the smoke run and the kernel
-bench: CUDA events around queued calls, and a CUDA graph's replay."""
+bench: CUDA events around queued calls, and a CUDA graph's replay; and the
+host clock after the card has caught up, for the train steps' splits."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+
+
+def synced_clock(device: torch.device) -> float:
+    """``time.perf_counter()`` once ``device`` has finished its queued work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def cuda_ms(fn, rounds: int = 5, inner: int = 4) -> float:

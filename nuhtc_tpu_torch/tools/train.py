@@ -3,6 +3,11 @@ module; reference tools/train.py).
 
   python -m nuhtc_tpu_torch.tools.train configs/nuhtc/htc_lite_swin_fpn_pannuke.py \\
       [--work-dir DIR] [--resume-from CKPT] [--cfg-options k=v ...] [--device cpu]
+  python -m nuhtc_tpu_torch.tools.train configs/nuhtc/semi_base.py ...
+
+A config with ``semi_wrapper`` and a ``SemiDataset`` trains the teacher and
+student of the semi-supervised recipe (``SemiPrefetchLoader``, the
+teacher/student step); its checkpoints hold both.
 
 The JAX script's arguments plus ``--device`` (default the first CUDA device,
 which raises without one; ``cpu`` trains on the CPU in f32). On the card

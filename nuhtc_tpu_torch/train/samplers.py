@@ -5,13 +5,16 @@ reference nuhtc/datasets/samplers/), batched and static-shape like
 - ``instance_balanced_sample``: positive slots dealt round-robin over the gt
   instances (InstanceBalancedPosSampler_Cus);
 - ``ohem_sample``: the hardest candidates by their current loss
-  (OHEMSampler_HTC), no draws.
-
-The semi-supervised batch index generator waits for the semi path.
+  (OHEMSampler_HTC), no draws;
+- ``semi_balance_indices``: the DistributedGroupSemiBalanceSampler analogue,
+  host-side batch indices mixing supervised and unsupervised samples.
 """
 
 from __future__ import annotations
 
+from typing import Iterator, List
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,3 +61,20 @@ def ohem_sample(losses: torch.Tensor, assign: T.AssignResult, num: int, pos_frac
     neg_rank = T.inverse_rank(torch.where(neg_mask, -losses, inf))
     prio = T.rank_priority(pos_mask, pos_rank, neg_mask, neg_rank, num_pos_expected, num)
     return T.select_slots(prio, assign, num, num_classes)
+
+
+def semi_balance_indices(n_sup: int, n_unsup: int, batch_size: int, sup_ratio: float = 0.5,
+                         seed: int = 0) -> Iterator[List[int]]:
+    """Endless batch indices: ``round(batch_size · sup_ratio)`` (at least 1)
+    supervised ones in [0, n_sup), the rest unsupervised in [n_sup, n_sup +
+    n_unsup), or supervised again when there are no unsupervised samples;
+    drawn from ``np.random.RandomState(seed)`` as the JAX package draws
+    them, so a seed gives the same indices."""
+    rng = np.random.RandomState(seed)
+    n_s = max(int(round(batch_size * sup_ratio)), 1)
+    n_u = batch_size - n_s
+    while True:
+        sup = rng.randint(0, n_sup, n_s)
+        unsup = (n_sup + rng.randint(0, max(n_unsup, 1), n_u) if n_unsup
+                 else rng.randint(0, n_sup, n_u))
+        yield np.concatenate([sup, unsup]).tolist()

@@ -1,5 +1,5 @@
-"""Optimizer, schedule, EMA and the train step (port of
-nuhtc_tpu/train/train_state.py:27-174).
+"""Optimizer, schedule, EMA and the train steps (port of
+nuhtc_tpu/train/train_state.py).
 
 The reference recipe: AdamW lr 1e-4, betas (0.9, 0.999), weight decay 0.05
 except on relative-position bias tables, absolute position embeddings and
@@ -15,6 +15,14 @@ global count; a frozen parameter's gradient is zeroed (its moments decay)
 and so is its update, weight decay included. Parameters, moments and the EMA
 are f32. The step updates the model's parameters, the moments and the EMA
 in place (the JAX package returns new arrays).
+
+The semi-supervised step (``make_semi_train_step``, the reference's
+MultiStreamDetector + MeanTeacher hook) trains the student of a
+``models.semi.MultiStreamDetector`` on the supervised and pseudo-labelled
+branches and moves the teacher's parameters, in place, by an EMA whose
+momentum warms up: m = min(momentum, 1 - (1 + warm_up) / (step + 1 +
+warm_up)), 0 at step 0; the unsupervised branch is weighted 0 during
+``burn_in`` steps.
 """
 
 from __future__ import annotations
@@ -22,10 +30,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import time
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from nuhtc_tpu_torch.tools.timing import synced_clock
 
 FROZEN_PREFIXES = ("backbone.patch_embed.", "backbone.stages.0.", "backbone.norm0.")
 NO_DECAY_KEYS = ("relative_position_bias_table", "absolute_pos_embed", "norm")
@@ -141,6 +151,40 @@ def create_train_state(model: torch.nn.Module, num_stages: int = 3, num_classes:
                                               device=dev)), tx
 
 
+def _frozen_names(model: torch.nn.Module) -> list:
+    names = [n for n, _ in model.named_parameters()]
+    fmask = frozen_mask(names)
+    return [n for n in names if fmask[n]]
+
+
+def _autocast(device: torch.device, compute_dtype: Optional[torch.dtype]):
+    return (torch.autocast(device.type, dtype=compute_dtype) if compute_dtype is not None
+            else contextlib.nullcontext())
+
+
+@torch.no_grad()
+def _apply_adamw(tx: "AdamW", opt_state: AdamWState, params: Dict[str, torch.Tensor],
+                 frozen: Sequence[str], frozen_now: bool) -> torch.Tensor:
+    """One AdamW update of ``params`` in place from their ``.grad`` (zero
+    where None); while ``frozen_now`` the frozen leaves' gradients and
+    updates are zeroed (AdamW's decoupled decay would still move them).
+    Returns the global norm of the gradients the optimizer took."""
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in params.items()}
+    if frozen_now:
+        for n in frozen:
+            grads[n] = torch.zeros_like(grads[n])
+    grad_norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+    updates = tx.update(grads, opt_state, params)
+    if frozen_now:
+        for n in frozen:
+            updates[n].zero_()
+    keys = list(params)
+    torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
+    return grad_norm
+
+
 def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-4,
                     finetune_iter: int = 15000, weighter=None,
                     compute_dtype: Optional[torch.dtype] = None):
@@ -152,14 +196,7 @@ def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-
     type, its products and convolutions in bf16, norms, softmax and losses in
     f32; parameters and gradients stay f32. ``timing``: a dict that receives
     the synchronized seconds of forward, backward and optimizer (+ EMA)."""
-    names = [n for n, _ in model.named_parameters()]
-    fmask = frozen_mask(names)
-    frozen = [n for n in names if fmask[n]]
-
-    def sync(dev):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
+    frozen = _frozen_names(model)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], timing: Optional[dict] = None):
@@ -168,42 +205,125 @@ def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-
         model.train()
         for p in params.values():
             p.grad = None
-        t0 = sync(dev) if timing is not None else 0.0
-        amp = (torch.autocast(dev.type, dtype=compute_dtype) if compute_dtype is not None
-               else contextlib.nullcontext())
-        with amp:
+        t0 = synced_clock(dev) if timing is not None else 0.0
+        with _autocast(dev, compute_dtype):
             losses, new_cum = model.compute_losses(batch["img"], batch, state.cum_samples,
                                                    generator)
             if weighter is not None:
                 losses = weighter(losses, state.step)
-        t1 = sync(dev) if timing is not None else 0.0
+        t1 = synced_clock(dev) if timing is not None else 0.0
         losses["total"].backward()
-        t2 = sync(dev) if timing is not None else 0.0
+        t2 = synced_clock(dev) if timing is not None else 0.0
         with torch.no_grad():
-            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                     for n, p in params.items()}
-            frozen_now = state.step < finetune_iter
-            if frozen_now:
-                for n in frozen:
-                    grads[n] = torch.zeros_like(grads[n])
-            grad_norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
-            updates = tx.update(grads, state.opt_state, params)
-            if frozen_now:  # AdamW's decoupled decay would still move them
-                for n in frozen:
-                    updates[n].zero_()
+            grad_norm = _apply_adamw(tx, state.opt_state, params, frozen,
+                                     state.step < finetune_iter)
             keys = list(params)
-            torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
             ema = [state.ema_params[k] for k in keys]
             torch._foreach_mul_(ema, 1.0 - ema_momentum)
             torch._foreach_add_(ema, [params[k] for k in keys], alpha=ema_momentum)
         if timing is not None:
-            t3 = sync(dev)
+            t3 = synced_clock(dev)
             timing.update(forward_s=t1 - t0, backward_s=t2 - t1, optimizer_s=t3 - t2)
         state.step += 1
         state.cum_samples = new_cum.detach()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return train_step
+
+
+@dataclasses.dataclass
+class SemiTrainState:
+    """Teacher/student state (the reference's MultiSteamDetector +
+    MeanTeacher hook pair): the student's and the teacher's parameters by
+    name, both updated in place, the student's AdamW state, the pass-through
+    counts."""
+    step: int
+    student_params: Dict[str, torch.Tensor]
+    teacher_params: Dict[str, torch.Tensor]
+    opt_state: AdamWState
+    cum_samples: torch.Tensor  # (num_stages, num_classes)
+
+
+def create_semi_train_state(student: torch.nn.Module, teacher: torch.nn.Module,
+                            num_stages: int = 1, num_classes: int = 5, schedule=None,
+                            tx: Optional[AdamW] = None) -> Tuple[SemiTrainState, AdamW]:
+    """The teacher starts as a clone of the student (the reference MeanTeacher
+    before_run: momentum_update(model, 0) at iteration 0): the student's
+    state is copied into ``teacher``. ``tx`` overrides the default optimizer
+    (e.g. ``build_named_optimizer``'s)."""
+    params = dict(student.named_parameters())
+    schedule = schedule or lr_schedule()
+    tx = tx if tx is not None else create_optimizer(params, schedule)
+    with torch.no_grad():
+        teacher.load_state_dict(student.state_dict(), strict=True)
+    dev = next(iter(params.values())).device
+    return SemiTrainState(step=0, student_params=params,
+                          teacher_params=dict(teacher.named_parameters()),
+                          opt_state=tx.init(params),
+                          cum_samples=torch.zeros((num_stages, num_classes), dtype=torch.float32,
+                                                  device=dev)), tx
+
+
+def teacher_momentum_at(step: int, momentum: float, warm_up: int) -> float:
+    """min(momentum, 1 - (1 + warm_up) / (step + 1 + warm_up)) in f32, as
+    the JAX step computes it (reference mean_teacher.py:46)."""
+    f = np.float32
+    ramp = f(1.0) - (f(1.0) + f(warm_up)) / (f(step) + f(1.0) + f(warm_up))
+    return float(min(f(momentum), ramp))
+
+
+def make_semi_train_step(wrapper, tx: AdamW, teacher_momentum: float = 0.999,
+                         teacher_warmup: int = 100, unsup_weight: float = 1.0, burn_in: int = 0,
+                         finetune_iter: int = 15000, weighter=None,
+                         compute_dtype: Optional[torch.dtype] = None):
+    """Returns ``train_step(state, batch, generator, timing=None) -> (state,
+    metrics)`` over a ``MultiStreamDetector``: the student in train mode, the
+    teacher in eval mode. ``batch``: the supervised keys of
+    ``compute_losses``, "unsup_img" (the strong view) and optionally
+    "unsup_img_teacher" (the weak view the teacher labels). The unsupervised
+    branch is weighted 0 while ``step < burn_in``; the frozen leaves are
+    masked before and after the optimizer as in ``make_train_step``; the
+    teacher's EMA is written in place after the student's update. Metrics:
+    every loss, ``grad_norm`` and ``ema_momentum``. ``compute_dtype`` and
+    ``timing`` as in ``make_train_step``; ``timing`` also receives
+    ``teacher_s``, the teacher's forward, which ``forward_s`` leaves out."""
+    from nuhtc_tpu_torch.models.semi import TeacherStudentState, mean_teacher_update
+
+    student, teacher = wrapper.model, wrapper.teacher
+    frozen = _frozen_names(student)
+
+    def train_step(state: SemiTrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator], timing: Optional[dict] = None):
+        params = state.student_params
+        dev = next(iter(params.values())).device
+        student.train()
+        teacher.eval()
+        for p in params.values():
+            p.grad = None
+        uw = 0.0 if state.step < burn_in else unsup_weight
+        t0 = synced_clock(dev) if timing is not None else 0.0
+        with _autocast(dev, compute_dtype):
+            losses, new_cum = wrapper.semi_loss(
+                batch, batch["unsup_img"], state.cum_samples, unsup_weight=uw,
+                generator=generator, unsup_img_teacher=batch.get("unsup_img_teacher"),
+                weighter=weighter, step=state.step, timing=timing)
+        t1 = synced_clock(dev) if timing is not None else 0.0
+        losses["total"].backward()
+        t2 = synced_clock(dev) if timing is not None else 0.0
+        m = teacher_momentum_at(state.step, teacher_momentum, teacher_warmup)
+        grad_norm = _apply_adamw(tx, state.opt_state, params, frozen, state.step < finetune_iter)
+        mean_teacher_update(TeacherStudentState(params, state.teacher_params), m)
+        if timing is not None:
+            t3 = synced_clock(dev)
+            timing.update(forward_s=t1 - t0 - timing["teacher_s"], backward_s=t2 - t1,
+                          optimizer_s=t3 - t2)
+        state.step += 1
+        state.cum_samples = new_cum.detach()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["grad_norm"] = grad_norm
+        metrics["ema_momentum"] = torch.tensor(m)
         return state, metrics
 
     return train_step

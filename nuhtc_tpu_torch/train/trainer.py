@@ -1,15 +1,12 @@
-"""Epoch-based supervised training on one device (port of
-nuhtc_tpu/train/trainer.py; the mmcv EpochBasedRunner equivalent): the
-threaded loader, the AdamW + EMA step, text and json logs (``train.log``,
-``log.json``, the JAX trainer's lines), checkpoints every
-``checkpoint_interval`` epochs keeping ``max_keep_ckpts``, explicit and
-automatic resume, and evaluation of the EMA weights every
-``eval_interval`` epochs through the port's ``InferenceEngine`` and
-``evaluate_dataset``.
-
-The semi-supervised wrapper waits for the port's semi path (ROADMAP Queue 1
-item 14, with MaskRCNN), and data parallelism for item 16: a config that
-names ``semi_wrapper`` raises.
+"""Epoch-based training on one device (port of nuhtc_tpu/train/trainer.py;
+the mmcv EpochBasedRunner equivalent): the threaded loader, the AdamW + EMA
+step (or, for a config with ``semi_wrapper``, the teacher/student step),
+text and json logs (``train.log``, ``log.json``, the JAX trainer's lines),
+checkpoints every ``checkpoint_interval`` epochs keeping
+``max_keep_ckpts``, explicit and automatic resume, and evaluation every
+``eval_interval`` epochs, of the EMA weights (the teacher's and the
+student's in a semi run) through the port's ``InferenceEngine`` and
+``evaluate_dataset``. Data parallelism waits for ROADMAP Queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -32,11 +29,12 @@ class Trainer:
                  max_keep_ckpts: int = 40, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = None,
                  record_timing: Optional[list] = None):
-        """``model``: the NuHTC module on its device, f32. ``compute_dtype``:
-        the forward's type under autocast (bf16 on the card), None for f32.
-        ``record_timing``: a list that receives each step's synchronized
-        split (loader_wait_s, forward_s, backward_s, optimizer_s: the
-        optimizer and the EMA)."""
+        """``model``: the detector on its device, f32 (the student of a semi
+        run). ``compute_dtype``: the forward's type under autocast (bf16 on
+        the card), None for f32. ``record_timing``: a list that receives each
+        step's synchronized split (loader_wait_s, forward_s, backward_s,
+        optimizer_s: the optimizer and the EMA; teacher_s in a semi run,
+        which forward_s leaves out)."""
         self.model = model
         self.cfg = cfg
         self.work_dir = work_dir
@@ -54,17 +52,22 @@ class Trainer:
         self.json_log = None  # log.json, open while run() runs
 
     def _hook_settings(self):
-        """EMA momentum and the unfreeze step, from the flat keys or the
-        reference's ``custom_hooks`` (LinearMomentumEMAHook, FineTune)."""
+        """EMA momentum, the MeanTeacher hook's momentum (None when absent)
+        and the unfreeze step, from the flat keys or the reference's
+        ``custom_hooks`` (LinearMomentumEMAHook, MeanTeacher, FineTune)."""
         ema_momentum = self.cfg.get("ema", {}).get("momentum")
         finetune_iter = self.cfg.get("finetune_iter")
+        teacher_momentum = None
         for hk in self.cfg.get("custom_hooks") or []:
             t = str(hk.get("type", ""))
             if t == "LinearMomentumEMAHook" and ema_momentum is None:
                 ema_momentum = hk.get("momentum")
+            if t == "MeanTeacher" and teacher_momentum is None:
+                # the hook's own momentum, not the evaluation EMA's
+                teacher_momentum = hk.get("momentum")
             if t == "FineTune" and finetune_iter is None:
                 finetune_iter = hk.get("iter")
-        return (2e-4 if ema_momentum is None else ema_momentum,
+        return (2e-4 if ema_momentum is None else ema_momentum, teacher_momentum,
                 15000 if finetune_iter is None else finetune_iter)
 
     def run(self, loader, test_dataset=None, resume_from: Optional[str] = None):
@@ -75,15 +78,10 @@ class Trainer:
 
     def _run(self, loader, test_dataset, resume_from):
         from nuhtc_tpu_torch.train.optim_groups import build_named_optimizer
-        from nuhtc_tpu_torch.train.train_state import (
-            create_train_state, lr_schedule, make_train_step)
+        from nuhtc_tpu_torch.train.train_state import lr_schedule
         from nuhtc_tpu_torch.utils import checkpoint as ckpt
         from nuhtc_tpu_torch.utils.hooks import WeightSummary, build_weighter
 
-        if self.cfg.get("semi_wrapper"):
-            raise NotImplementedError(
-                "Trainer: semi-supervised training (semi_wrapper) waits for the port of "
-                "models/semi.py with MaskRCNN (ROADMAP Queue 1 item 14)")
         model = self.model
         device = next(model.parameters()).device
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -100,19 +98,14 @@ class Trainer:
             step_epochs=tuple(self.cfg.get("lr_config", {}).get("step", [30, 160])),
             iters_per_epoch=self.iters_per_epoch)
         weighter = build_weighter(self.cfg.get("loss_weight_schedules"))
-        ema_momentum, finetune_iter = self._hook_settings()
         custom_keys = self.cfg.get("optimizer", {}).get("paramwise_cfg", {}).get("custom_keys")
         tx = None
-        if custom_keys:
+        if custom_keys:  # built before the split: semi runs take custom_keys too
             tx = build_named_optimizer(
                 [n for n, _ in model.named_parameters()], base_lr=schedule,
                 weight_decay=self.cfg.get("optimizer", {}).get("weight_decay", 0.05),
                 rules=[dict(pattern=k, **v) for k, v in dict(custom_keys).items()])
-        state, tx = create_train_state(model, num_stages=getattr(model, "num_stages", 1),
-                                       num_classes=model.num_classes, schedule=schedule, tx=tx)
-        train_step = make_train_step(model, tx, ema_momentum=ema_momentum,
-                                     finetune_iter=finetune_iter, weighter=weighter,
-                                     compute_dtype=self.compute_dtype)
+        state, train_step = self._make_step(schedule, tx, weighter)
 
         ckpt_dir = os.path.join(os.path.abspath(self.work_dir), "checkpoints")
         start_epoch = 0
@@ -150,7 +143,8 @@ class Trainer:
                     self._log_train(epoch, i, schedule(gstep), metrics)
                 if vis_hook is not None and gstep and gstep % vis_hook.interval == 0:
                     try:
-                        vis_hook.maybe_log(gstep, self._ema_state_dict(state))
+                        vis_hook.maybe_log(gstep, next(iter(
+                            self._eval_submodules(state).values())))
                     except Exception as e:  # the overlays must not stop training
                         self.logger.warning(f"mask_vis failed: {e}")
             if (epoch + 1) % self.checkpoint_interval == 0 or epoch + 1 == self.max_epochs:
@@ -165,6 +159,41 @@ class Trainer:
                         self.logger.warning(f"eval[{name}] failed: {e}")
         self.logger.info(f"training done in {(time.time() - t_start) / 3600:.2f}h")
         return state
+
+    def _make_step(self, schedule, tx, weighter):
+        """The train state and step: the teacher/student ones when the
+        config names ``semi_wrapper`` (teacher momentum from
+        ``semi_wrapper.momentum``, else the MeanTeacher hook's, else 0.999;
+        ``warm_up``, ``unsup_weight`` and ``burn_in`` from ``semi_wrapper``),
+        else the supervised AdamW + EMA ones."""
+        from nuhtc_tpu_torch.train import train_state as TS
+
+        model = self.model
+        ema_momentum, teacher_momentum, finetune_iter = self._hook_settings()
+        num_stages = getattr(model, "num_stages", 1)  # MaskRCNN has one stage
+        semi_cfg = self.cfg.get("semi_wrapper")
+        if not semi_cfg:
+            state, tx = TS.create_train_state(model, num_stages=num_stages,
+                                              num_classes=model.num_classes,
+                                              schedule=schedule, tx=tx)
+            return state, TS.make_train_step(model, tx, ema_momentum=ema_momentum,
+                                             finetune_iter=finetune_iter, weighter=weighter,
+                                             compute_dtype=self.compute_dtype)
+        from nuhtc_tpu_torch.models.semi import MultiStreamDetector
+
+        wrapper = MultiStreamDetector(model, score_thr=semi_cfg.get("score_thr", 0.9),
+                                      max_gt=semi_cfg.get("max_gt", 128))
+        state, tx = TS.create_semi_train_state(model, wrapper.teacher,
+                                               num_stages=num_stages,
+                                               num_classes=model.num_classes,
+                                               schedule=schedule, tx=tx)
+        return state, TS.make_semi_train_step(
+            wrapper, tx,
+            teacher_momentum=semi_cfg.get("momentum") or teacher_momentum or 0.999,
+            teacher_warmup=semi_cfg.get("warm_up", 100),
+            unsup_weight=semi_cfg.get("unsup_weight", 1.0),
+            burn_in=semi_cfg.get("burn_in", 0), finetune_iter=finetune_iter,
+            weighter=weighter, compute_dtype=self.compute_dtype)
 
     def _resume(self, ckpt, path: str, state) -> int:
         """Loads a checkpoint file or the newest of a directory into
@@ -187,16 +216,18 @@ class Trainer:
                                         "lr": lr, **m}) + "\n")
         self.json_log.flush()
 
-    def _ema_state_dict(self, state) -> Dict[str, torch.Tensor]:
-        sd = dict(self.model.state_dict())
-        sd.update(state.ema_params)
-        return sd
-
     def _eval_submodules(self, state) -> Dict[str, Any]:
-        """The weights to evaluate (the SubModulesDistEvalHook analogue):
-        "ema" by default, "raw" for the trained weights; cfg key
+        """The state dicts to evaluate (the SubModulesDistEvalHook
+        analogue): "teacher" and "student" in a semi run, else "ema" (the
+        default) and "raw" (the trained weights); cfg key
         ``evaluated_modules`` picks among them."""
-        avail = {"ema": self._ema_state_dict(state), "raw": dict(self.model.state_dict())}
+        raw = dict(self.model.state_dict())
+        if hasattr(state, "teacher_params"):
+            avail = {"teacher": dict(raw, **state.teacher_params), "student": raw}
+            default = ("teacher", "student")  # semi runs evaluate both streams
+        else:
+            avail = {"ema": dict(raw, **state.ema_params), "raw": raw}
+            default = ("ema",)
         wanted = self.cfg.get("evaluated_modules")
         if wanted:
             sel = {n: avail[n] for n in wanted if n in avail}
@@ -206,7 +237,7 @@ class Trainer:
                                     f"(available: {sorted(avail)})")
             if sel:
                 return sel
-        return {"ema": avail["ema"]}
+        return {n: avail[n] for n in default}
 
     def _engine(self, state_dict, batch_size: int = 8):
         """An InferenceEngine on a copy of the model holding ``state_dict``,

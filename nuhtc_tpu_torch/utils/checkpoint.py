@@ -6,9 +6,13 @@ trainer's step is the epoch), each a ``torch.save`` of a dict:
 ``format``, ``step`` (the train step count), ``params`` (the model's
 state dict), ``ema_params`` and the AdamW state (``opt_count``, ``opt_mu``,
 ``opt_nu``) by parameter name, and ``cum_samples`` (the seesaw counts), all
-on the CPU. ``save_checkpoint(keep=)`` keeps the newest ``keep`` files;
+on the CPU. A semi-supervised train state (``SemiTrainState``) is saved with
+``student_params`` (the student's state dict) and ``teacher_params`` (the
+teacher's parameters by name) in place of ``params`` and ``ema_params``.
+``save_checkpoint(keep=)`` keeps the newest ``keep`` files;
 ``init_detector(path, use_ema=True)`` reads the EMA weights of a file, or of
-the newest file of a directory.
+the newest file of a directory (the teacher's of a semi one), and
+``use_ema=False`` the trained ones (the student's).
 """
 
 from __future__ import annotations
@@ -43,14 +47,20 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+def _is_semi(state) -> bool:
+    return hasattr(state, "teacher_params")
+
+
 def save_checkpoint(path: str, state, model: torch.nn.Module, step: int, keep: int = 40) -> str:
     """Writes ``step_<step>.pt`` (through a temporary file, so a cut run
     leaves no half file) and removes all but the newest ``keep``."""
     os.makedirs(path, exist_ok=True)
-    blob = dict(format=FORMAT, step=int(state.step), params=_cpu(model.state_dict()),
-                ema_params=_cpu(state.ema_params), opt_count=int(state.opt_state.count),
-                opt_mu=_cpu(state.opt_state.mu), opt_nu=_cpu(state.opt_state.nu),
-                cum_samples=state.cum_samples.detach().cpu())
+    weights = (dict(student_params=_cpu(model.state_dict()),
+                    teacher_params=_cpu(state.teacher_params)) if _is_semi(state)
+               else dict(params=_cpu(model.state_dict()), ema_params=_cpu(state.ema_params)))
+    blob = dict(format=FORMAT, step=int(state.step), **weights,
+                opt_count=int(state.opt_state.count), opt_mu=_cpu(state.opt_state.mu),
+                opt_nu=_cpu(state.opt_state.nu), cum_samples=state.cum_samples.detach().cpu())
     out = checkpoint_file(path, step)
     tmp = out + ".tmp"
     torch.save(blob, tmp)
@@ -83,13 +93,18 @@ def is_train_checkpoint(path: str) -> bool:
 
 @torch.no_grad()
 def load_checkpoint(path: str, state, model: torch.nn.Module, step: Optional[int] = None):
-    """Restores the model's weights, the EMA, the AdamW state, the step and
-    the seesaw counts of ``state`` in place from a checkpoint; returns
-    ``state``."""
+    """Restores the model's weights (the student's of a semi state), the EMA
+    (the teacher's parameters), the AdamW state, the step and the counts of
+    ``state`` in place from a checkpoint; returns ``state``."""
     blob = read_checkpoint(path, step)
-    model.load_state_dict(blob["params"], strict=True)
-    for name, dst in (("ema_params", state.ema_params), ("opt_mu", state.opt_state.mu),
-                      ("opt_nu", state.opt_state.nu)):
+    semi = _is_semi(state)
+    if semi != ("teacher_params" in blob):
+        raise ValueError(f"{path}: a {'semi-supervised' if 'teacher_params' in blob else 'supervised'}"
+                         " checkpoint for another kind of train state")
+    model.load_state_dict(blob["student_params" if semi else "params"], strict=True)
+    averaged = ("teacher_params", state.teacher_params) if semi else ("ema_params",
+                                                                     state.ema_params)
+    for name, dst in (averaged, ("opt_mu", state.opt_state.mu), ("opt_nu", state.opt_state.nu)):
         src = blob[name]
         if sorted(src) != sorted(dst):
             raise ValueError(f"{path}: {name} names differ from the model's parameters")
@@ -102,10 +117,16 @@ def load_checkpoint(path: str, state, model: torch.nn.Module, step: Optional[int
 
 
 def checkpoint_state_dict(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
-    """The model state dict of a checkpoint: its EMA weights over the raw
-    ones when ``use_ema`` (what the trainer evaluates), else the raw ones."""
+    """The model state dict of a checkpoint, in the key order of the JAX
+    package's ``init_detector``: with ``use_ema`` the EMA weights or the
+    teacher's, else the trained weights or the student's (an average is laid
+    over the trained state dict, whose buffers it shares)."""
     blob = read_checkpoint(path)
-    sd = dict(blob["params"])
-    if use_ema:
-        sd.update(blob["ema_params"])
-    return sd
+    order = (("ema_params", "teacher_params", "params", "student_params") if use_ema
+             else ("params", "student_params", "ema_params", "teacher_params"))
+    sd = dict(blob["params"] if "params" in blob else blob["student_params"])
+    for key in order:
+        if blob.get(key) is not None:
+            sd.update(blob[key])
+            return sd
+    raise ValueError(f"checkpoint {path!r} has no weights (keys: {sorted(blob)})")

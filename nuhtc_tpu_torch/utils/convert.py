@@ -4,6 +4,14 @@
 and its layout transforms (``_conv_w``, ``_deconv_w`` with its spatial flip,
 ``_lin_w``, ``_roi_fc_w``). It takes the flax tree as nested dicts of numpy
 arrays and needs no JAX.
+
+The Mask R-CNN tree (nuhtc_tpu/models/mask_rcnn.py) maps onto mmdet's Mask
+R-CNN names: its one ``bbox_head`` (no stage index) onto
+``roi_head.bbox_head.{shared_fcs.0, shared_fcs.1, fc_cls, fc_reg}``, its
+``mask_head`` onto ``roi_head.mask_head.*`` as NuHTC's, and the mid-seg
+``conv_last`` onto ``conv_last`` (the reference's mask_rcnn_part.py name).
+``map_torch_key`` of the JAX package reads none of those three un-indexed
+or extra names back.
 """
 
 from __future__ import annotations
@@ -97,8 +105,8 @@ def torch_key(path: Tuple[str, ...]):
             return f"{base}.conv_embedding.conv.{leaf}", wfn(_conv)
         return f"{base}.{rest[0]}.{leaf}", wfn(_conv)
     m = re.fullmatch(r"bbox_heads_(\d+)", top)
-    if m:
-        base = f"roi_head.bbox_head.{m.group(1)}"
+    if m or top == "bbox_head":
+        base = f"roi_head.bbox_head.{m.group(1)}" if m else "roi_head.bbox_head"
         if rest[0] == "shared_fc0":
             return f"{base}.shared_fcs.0.{leaf}", wfn(_roi_fc)
         if rest[0] == "shared_fc1":
@@ -112,6 +120,8 @@ def torch_key(path: Tuple[str, ...]):
         if rest[0] == "upsample":
             return f"{base}.upsample.{leaf}", wfn(_deconv)
         return f"{base}.{rest[0]}.{leaf}", wfn(_conv)
+    if top == "conv_last":
+        return f"conv_last.{leaf}", wfn(_conv)
     return None
 
 

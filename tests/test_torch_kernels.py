@@ -11,13 +11,17 @@ the test) at the small shapes of test_fused_attention.py, atol 0.06.
 K4's backward (``roi_align_sum_backward``, the ``grad_fn`` of
 ``roi_align_sum`` on CUDA tensors) is held against autograd through the
 plain version: f32 within 1e-4 of each map's gradient scale, bf16 within
-2^-7 of the f32 plain gradients' scale.
+2^-7 of the f32 plain gradients' scale. The Mask R-CNN's extractor
+(``multilevel_roi_features``: one K4 launch per pyramid level, masked by
+each RoI's level) is held the same way at out 7 and 14 over four levels,
+forward and backward.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from nuhtc_tpu_torch.models.roi_extractor import multilevel_roi_features, roi_levels
 from nuhtc_tpu_torch.ops import components as tc
 from nuhtc_tpu_torch.ops.roi_align import (
     roi_align_sum_backward, roi_align_sum_backward_plain,
@@ -693,3 +697,49 @@ def test_roi_align_sum_backward_kernel_matches_plain(cuda, out, ratio, pool_from
     for m, w in zip(maps16, want32):
         assert m.grad.dtype == torch.bfloat16
         assert (m.grad.float() - w).abs().max().item() <= 2.0 ** -7 * w.abs().max().item()
+
+
+def _pyramid_case(device, dtype, c=64, b=2, side=256, r=120, seed=0):
+    """Four levels (strides 4 to 32) of a side² image that require grad, and
+    boxes from 2 to 600 px so that every level takes some."""
+    rng = np.random.RandomState(seed)
+    maps = [torch.from_numpy(rng.randn(b, side // s, side // s, c).astype(np.float32))
+            .to(device, dtype).requires_grad_(True) for s in (4, 8, 16, 32)]
+    xy = rng.uniform(-10, side - 10, (b, r, 2))
+    wh = np.exp(rng.uniform(np.log(2), np.log(600), (b, r, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).to(device)
+    return maps, rois
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [7, 14])
+def test_multilevel_roi_features_kernel_matches_plain(cuda, out):
+    """Four K4 launches forward and four backward; f32 within 1e-4 (of each
+    map's gradient scale backward), bf16 within 2^-7 of the f32 plain
+    version's scale, both against the same function on CPU copies."""
+    maps, rois = _pyramid_case(cuda, torch.float32)
+    assert len(torch.unique(roi_levels(rois, 4))) == 4
+    g = torch.randn((2, rois.shape[1], out, out, 64), generator=torch.Generator().manual_seed(out))
+    cpu_maps = [m.detach().cpu().requires_grad_(True) for m in maps]
+    want = multilevel_roi_features(cpu_maps, rois.cpu(), out)
+    want.backward(g)
+    before_f, before_b = roi_align.launches, roi_align_sum_backward.launches
+    got = multilevel_roi_features(maps, rois, out)
+    got.backward(g.to(cuda))
+    torch.cuda.synchronize()
+    assert roi_align.launches == before_f + 4 and roi_align_sum_backward.launches == before_b + 4
+    assert (got.detach().cpu() - want.detach()).abs().max().item() <= 1e-4
+    for m, w in zip(maps, cpu_maps):
+        scale = w.grad.abs().max().item()
+        assert scale > 0.1 and (m.grad.cpu() - w.grad).abs().max().item() <= 1e-4 * scale
+
+    maps16 = [m.detach().bfloat16().requires_grad_(True) for m in maps]
+    got16 = multilevel_roi_features(maps16, rois, out)
+    got16.backward(g.to(cuda).bfloat16())
+    torch.cuda.synchronize()
+    assert got16.dtype == torch.bfloat16
+    tol = 2.0 ** -7 * max(m.abs().max().item() for m in maps)
+    assert (got16.float().cpu() - want.detach()).abs().max().item() <= tol
+    for m, w in zip(maps16, cpu_maps):
+        scale = w.grad.abs().max().item()
+        assert (m.grad.float().cpu() - w.grad).abs().max().item() <= 2.0 ** -7 * scale
