@@ -46,7 +46,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      tier "attn"; per forward K2 12 times, K4 4 times, K3 at least once;
      masks (n, 256, 256) uint8 of 0/1; tiles/s and the collect split. Then
      flip TTA on 4 tiles: no more detections than the three views
-     together, kept boxes inside the tile;
+     together, kept boxes inside the tile. Then one batch against an f32
+     engine on the card through the plain versions (Swin tier "none",
+     ``roi_align_sum_plain``, ``component_stats_plain``; no kernel launch)
+     on the same bf16-rounded weights: detections matched one to one (same
+     label, IoU > 0.5) within the bound NUHTC_MATCH_MIN / NUHTC_SCORE_TOL /
+     NUHTC_IOU_MEDIAN, whose derivation stands beside it; the FPN's finest
+     level, the semantic logits and the proposal counts of both runs printed;
   8. the whole-slide path: a synthetic H&E-like slide from a seed (2304²,
      levels 1 to 32) through ``segment_tissue`` → ``grid_coords`` (256² tiles
      at step 192) → ``infer_slide(mode="all")`` on the WSI-mode engine
@@ -120,8 +126,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      steps, the peak memory; K4's backward at the four calls of a step
      against autograd through the plain version (f32 within 1e-4 of each
      map's gradient scale, bf16 within 2⁻⁷ of the f32 plain gradients'
-     scale) and K4's forward and backward time a step against the bound and
-     the plain version.
+     scale), bit-equal over three calls in each type, and K4's forward and
+     backward time a step against the bound and the plain version;
+ 12b. the configs whose train pipelines crop (``phase_train_configs``):
+     ``tools.train.main`` for 2 steps without evaluation on the CoNIC config
+     (``RandomCrop``) over phase 10's release and on the NuCLS config
+     (``FOVCrop`` + ``CusRandomCrop``, the partial-mask head) over a
+     synthetic NuCLS release with a field of view per image: losses finite,
+     4 K4 and 4 K4-backward launches a step, s/step; then two
+     ``--deterministic`` runs of 2 steps on the PanNuke config, each a
+     process of its own: their weights compared bit for bit, and the ops
+     torch warned have no deterministic implementation printed.
  13. the semi-supervised recipe (``phase_semi``), configs/nuhtc/semi_base.py
      as shipped (Mask R-CNN, Swin-T, FPN 64, 8 classes) on a synthetic NuCLS
      release written by the phase: serving at B16 in WSI mode and on the
@@ -134,7 +149,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      rebuilt after every EMA write); teacher and student through
      ``init_detector(use_ema=)``; the trained teacher's blocks through K1
      against the plain tier; K4 at a serving forward's and a train step's
-     calls against its plain version; s/step with its split (loader wait,
+     calls against its plain version (its backward also bit-equal over two
+     calls); s/step with its split (loader wait,
      teacher forward, student forward, backward, optimizer + EMA), the idle
      share over 3 profiled steps, the peak memory.
 K3's and K4's times are taken twice: by CUDA events around runs of 4 calls
@@ -144,7 +160,7 @@ time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
 by path: wsi, strict, slide, embed, eval, patch, robustness, train,
-semi_serve, semi_train; K4's
+train_configs, semi_serve, semi_train; K4's
 backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
@@ -563,9 +579,127 @@ def phase_slice(device):
     return counts
 
 
+# The NuHTC strict path in bf16 (K2, K3, K4) against the same tiles in f32
+# on the card through the plain versions, on the same bf16-rounded weights,
+# detections matched one to one (same label, IoU > 0.5). Set before the
+# first run, from bf16's rounding and what is discrete on this path:
+# - scores: bf16 keeps 8 significant bits, so each of the ~40 layers on the
+#   way to a score (12 Swin blocks of two sublayers, 3 merges, the FPN, 3
+#   cascade stages of 4 linear layers) rounds its output by up to 2^-9 of
+#   its scale; as a random walk that is sqrt(40) * 2^-8 = 0.025 of a logit's
+#   scale, ~0.05 on logits of |2|, 0.2 at four sigma, and a sigmoid or a
+#   softmax moves by at most 1/4 of its logit's change: |Δscore| <= 0.05,
+#   as the Mask R-CNN's SEMI_SCORE_TOL;
+# - boxes: three stages of deltas, each off by that relative error: the
+#   pairs' median IoU >= 0.95;
+# - which detections exist: the score threshold and the NMS decide it as in
+#   the Mask R-CNN, whose bound leaves 20 % unmatched for them; here the
+#   semantic logits are also thresholded at 0 before the component
+#   proposals (up to 512 a tile, prepended to the RPN's): a pixel whose
+#   logit lies within the bf16 error of 0 flips, and a flip on a one-pixel
+#   neck splits or joins a component (the 5×5 opening removes isolated
+#   flips). Taking a few per cent of the components changed and the
+#   cascade sending most of their detections to the same nucleus anyway,
+#   10 % more may go unmatched: >= 70 % of the f32 detections matched.
+NUHTC_MATCH_MIN, NUHTC_SCORE_TOL, NUHTC_IOU_MEDIAN = 0.7, 0.05, 0.95
+
+
+def _strict_vs_f32(engine, tiles):
+    """The strict path of ``engine`` (bf16, tier attn: K2, K3, K4) against
+    an f32 engine on the card with the Swin tier "none", ``roi_align_sum_plain``
+    and ``component_stats_plain``, on the bf16 engine's weights, over the
+    same tiles: no kernel launched in the f32 run; ≥ NUHTC_MATCH_MIN of its
+    detections matched one to one (``_match``), |Δscore| ≤ NUHTC_SCORE_TOL,
+    the pairs' median IoU ≥ NUHTC_IOU_MEDIAN. Printed beside them, for
+    finding a stage that diverges: the FPN's finest level, the semantic
+    logits (their sign is what the component proposals threshold), and the
+    RPN and component proposals a tile, of both runs."""
+    import torch
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.models import detector as det_mod
+    from nuhtc_tpu_torch.models import roi_extractor
+    from nuhtc_tpu_torch.ops import components
+    from nuhtc_tpu_torch.ops import roi_align as ra
+
+    def traced_run(eng):
+        seen = {}
+
+        def keep(name, value):
+            seen.setdefault(name, value)  # a hook that returns None keeps the output
+
+        hooks = [eng.model.neck.register_forward_hook(
+                     lambda mod, inp, out: keep("p2", out[0].float())),
+                 eng.model.roi_head.semantic_head.register_forward_hook(
+                     lambda mod, inp, out: keep("sem", out[0][..., 0].float()))]
+        plain_rpn, plain_ws = det_mod.rpn_proposals, det_mod.component_proposals_batched
+
+        def rpn(*a, **kw):
+            out = plain_rpn(*a, **kw)
+            keep("rpn", out[2].sum(1).float().mean().item())
+            return out
+
+        def ws(*a, **kw):
+            out = plain_ws(*a, **kw)
+            keep("ws", out[1].sum(1).float().mean().item())
+            return out
+
+        det_mod.rpn_proposals, det_mod.component_proposals_batched = rpn, ws
+        try:
+            res = eng.run_batch(tiles)
+            torch.cuda.synchronize()
+        finally:
+            det_mod.rpn_proposals, det_mod.component_proposals_batched = plain_rpn, plain_ws
+            for h in hooks:
+                h.remove()
+        return res, seen
+
+    got, seen16 = traced_run(engine)
+    ref = init_detector(CONFIG, None, batch_size=BATCH, dtype=torch.float32, swin_kernel="none")
+    ref.model.load_state_dict({k: v.float() for k, v in engine.model.state_dict().items()})
+    reset_counts()  # before the patch: the counters are read off these very names
+    plain_sum, plain_stats = roi_extractor.roi_align_sum, components.component_stats
+    roi_extractor.roi_align_sum = ra.roi_align_sum_plain
+    components.component_stats = components.component_stats_plain
+    try:
+        want, seen32 = traced_run(ref)
+    finally:
+        roi_extractor.roi_align_sum, components.component_stats = plain_sum, plain_stats
+    if any(read_counts().values()):
+        raise AssertionError(f"strict vs f32: the plain f32 path launched a kernel: "
+                             f"{read_counts()}")
+    del ref
+    total, d_score, ious = 0, [], []
+    for g, w in zip(got, want):
+        total += len(w["scores"])
+        for gi, wi, iou in _match(g, w):
+            d_score.append(abs(float(g["scores"][gi]) - float(w["scores"][wi])))
+            ious.append(iou)
+    rate = len(ious) / max(total, 1)
+    d_score, ious = np.asarray(d_score or [np.inf]), np.asarray(ious or [0.0])
+    p2_16, p2_32 = seen16["p2"], seen32["p2"]
+    s16, s32 = seen16["sem"], seen32["sem"]
+    dp2 = (p2_16 - p2_32).abs()
+    log(f"strict path bf16 (K2, K3, K4) vs f32 plain on the card, the same bf16-rounded weights, "
+        f"{len(tiles)} tiles: FPN p2 max |Δ| {dp2.max().item():.4f} of max "
+        f"|p2| {p2_32.abs().max().item():.3f} (mean |Δ| {dp2.mean().item():.5f});"
+        f" semantic logits max |Δ| {(s16 - s32).abs().max().item():.4f}, sign differs at "
+        f"{((s16 > 0) != (s32 > 0)).float().mean().item():.5f} of the cells; proposals a tile "
+        f"RPN {seen16['rpn']:.1f} / {seen32['rpn']:.1f}, components {seen16['ws']:.1f} / "
+        f"{seen32['ws']:.1f} (bf16 / f32)")
+    log(f"strict path bf16 vs f32: {len(ious)} of {total} detections matched ({rate:.3f}); "
+        f"|Δscore| median {np.median(d_score):.4f}, max {d_score.max():.4f}; box IoU of the pairs "
+        f"median {np.median(ious):.4f}, min {ious.min():.4f} (allowed: ≥ {NUHTC_MATCH_MIN} "
+        f"matched, |Δscore| ≤ {NUHTC_SCORE_TOL}, median IoU ≥ {NUHTC_IOU_MEDIAN})")
+    if rate < NUHTC_MATCH_MIN or d_score.max() > NUHTC_SCORE_TOL or \
+            np.median(ious) < NUHTC_IOU_MEDIAN:
+        raise AssertionError("strict path: the bf16 card path disagrees with the f32 plain path")
+    return dict(matched=rate, score_max=float(d_score.max()), iou_median=float(np.median(ious)))
+
+
 def phase_strict(device):
     """The strict patch path (host preprocess, one full-frame mask per
-    detection) on the Swin tier "attn", then flip TTA on top of it."""
+    detection) on the Swin tier "attn", then flip TTA on top of it, then one
+    batch against the f32 plain path (``_strict_vs_f32``)."""
     import torch
     from nuhtc_tpu_torch.apis.inference import TTAEngine, init_detector
     from nuhtc_tpu_torch.tools.synthetic import lift_objectness, synthetic_tiles
@@ -640,6 +774,7 @@ def phase_strict(device):
     kept = sum(len(r["scores"]) for r in merged)
     log(f"TTA (3 views, {len(tiles)} tiles): {dt:.3f} s; kept {kept} of "
         f"{sum(sum(v[:len(tiles)]) for v in views)} detections")
+    _strict_vs_f32(engine, batches[1])
     return counts
 
 
@@ -1271,34 +1406,38 @@ TRAIN_BATCH = 8  # samples_per_gpu of the PanNuke config
 PROFILED_STEPS = 3
 
 
-def _train_config(tmp, ctx):
-    """The PanNuke config as it stands, on phase_eval's release: training on
-    its 64 tiles (class-aware sampling), evaluation on the 8-tile subset; a
-    log line every step, a checkpoint and an evaluation every epoch. Without Pillow on this host, ``RandCorrupt``
-    leaves out ``jpeg_compression`` (Pillow's codec), the one corruption of
-    the catalog that needs it; the line says so."""
+def _release_data(ctx):
+    """phase_eval's release as a config's ``data``: training on its 64 tiles,
+    evaluation on the 8-tile subset."""
+    seg = os.path.join(os.path.dirname(ctx["rgb"]), "rgb_seg")
+    return dict(train=dict(dataset=dict(ann_file=ctx["ann_file"], img_prefix=ctx["rgb"],
+                                        seg_prefix=seg)),
+                test=dict(ann_file=ctx["subset"], img_prefix=ctx["rgb"], seg_prefix=seg))
+
+
+def _train_config(tmp, base, data, name):
+    """The config ``base`` as it stands with ``data`` for its datasets, a log
+    line every step, a checkpoint and an evaluation every epoch, written as
+    ``name``.py. Without Pillow on this host, ``RandCorrupt`` leaves out
+    ``jpeg_compression`` (Pillow's codec), the one corruption of the catalog
+    that needs it; the line says so."""
     import importlib.util
 
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.data.pipelines import CORRUPTIONS
 
-    seg = os.path.join(os.path.dirname(ctx["rgb"]), "rgb_seg")
-    lines = [f"_base_ = {CONFIG!r}", "log_interval = 1", "checkpoint_interval = 1",
-             "evaluation = dict(interval=1)",
-             "data = " + repr(dict(
-                 train=dict(dataset=dict(ann_file=ctx["ann_file"], img_prefix=ctx["rgb"],
-                                         seg_prefix=seg)),
-                 test=dict(ann_file=ctx["subset"], img_prefix=ctx["rgb"], seg_prefix=seg)))]
+    lines = [f"_base_ = {base!r}", "log_interval = 1", "checkpoint_interval = 1",
+             "evaluation = dict(interval=1)", "data = " + repr(data)]
     note = "the train pipeline as the config has it"
     if importlib.util.find_spec("PIL") is None:
-        pipeline = Config.fromfile(CONFIG).to_dict()["train_pipeline"]
+        pipeline = Config.fromfile(base).to_dict()["train_pipeline"]
         for t in pipeline:
             if t["type"] == "RandCorrupt":
                 t["corruption"] = [n for n in CORRUPTIONS if n != "jpeg_compression"]
         lines.append("train_pipeline = " + repr(pipeline))
         note = ("no Pillow on this host: RandCorrupt draws from the other 18 corruptions "
                 "(jpeg_compression needs Pillow's codec)")
-    path = os.path.join(tmp, "train_pannuke.py")
+    path = os.path.join(tmp, f"{name}.py")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path, note
@@ -1363,7 +1502,7 @@ def phase_train(device, tmp, ctx):
     from nuhtc_tpu_torch.utils import checkpoint as ckpt
     from nuhtc_tpu_torch.utils.imageio import read_image
 
-    cfg_path, note = _train_config(tmp, ctx)
+    cfg_path, note = _train_config(tmp, CONFIG, _release_data(ctx), "train_pannuke")
     work = os.path.join(tmp, "train_work")
     ck_dir = os.path.join(work, "checkpoints")
     argv = [cfg_path, "--work-dir", work, "--iters-per-epoch", str(TRAIN_ITERS), "--seed", "0"]
@@ -1552,6 +1691,14 @@ def phase_train(device, tmp, ctx):
         maps_b = [m.clone().requires_grad_(True) for m in maps16]
         ra.roi_align_sum(maps_b, rois, *args, bias=bias).backward(g16)
         ref, _ = ra.roi_align_sum_backward_plain(g16.float(), shapes, rois, *args, True)
+        # the same bits from every call: twice more in each type
+        for grads, g in (([m.grad for m in maps32] + [b32.grad], g32),
+                         ([m.grad for m in maps_b], g16)):
+            for _ in range(2):
+                again, again_b = ra.roi_align_sum_backward(g, shapes, rois, *args, True)
+                if not all(torch.equal(a, w) for a, w in zip(again + [again_b], grads)):
+                    raise AssertionError(f"K4 backward at a train-step call ({g.dtype}): two "
+                                         f"calls on the same inputs differ")
         torch.cuda.synchronize()
         e16 = 0.0
         for m, w in zip(maps_b, ref):
@@ -1577,7 +1724,8 @@ def phase_train(device, tmp, ctx):
         tot["bf"], tot["bb"] = tot["bf"] + bf, tot["bb"] + bbytes
         log(f"K4 at a train-step call (B{rois.shape[0]} R{rois.shape[1]} out {out_size}, maps "
             f"{[s[1:3] for s in shapes]}): backward f32 err {err32:.2e} of the gradient scale "
-            f"(bias {eb:.2e}), bf16 {e16:.5f} (allowed {2.0 ** -7:.5f}); forward {t_f:.3f} ms "
+            f"(bias {eb:.2e}), bf16 {e16:.5f} (allowed {2.0 ** -7:.5f}), bit-equal over 3 calls "
+            f"in each type; forward {t_f:.3f} ms "
             f"(plain {t_pf:.3f}), backward {t_b:.3f} ms (plain autograd {t_pb:.3f})")
     by_f = bound_ms(tot["ff"], PEAK_F32, tot["fb"])[1]
     by_b = bound_ms(tot["bf"], PEAK_F32, tot["bb"])[1]
@@ -1592,6 +1740,110 @@ def phase_train(device, tmp, ctx):
     return counts, dict(max_abs_err=err16, max_abs_err_f32=err32, ms=bwd_ms,
                         plain_ms=plain_bwd_ms, bound_ms=bound_b, bound_by=by_b,
                         forward_ms=fwd_ms, forward_bound_ms=bound_f)
+
+
+CROP_CONFIGS = ("htc_lite_swin_fpn_conic.py", "htc_lite_swin_fpn_nucls.py")
+CONFIG_STEPS = 2  # steps of each run of phase_train_configs
+
+
+def phase_train_configs(device, tmp, ctx):
+    """The two configs whose train pipelines crop, through ``python -m
+    nuhtc_tpu_torch.tools.train`` (``main(argv)``) for CONFIG_STEPS steps
+    without evaluation, at full width (bf16 autocast, each config's batch):
+    CoNIC (``RandomCrop`` 128², then the PanNuke chain) on phase_eval's
+    release, and NuCLS (``FOVCrop`` + ``CusRandomCrop``, the partial-mask
+    head) on a synthetic NuCLS release (``synthetic_nucls(fovloc=True)``:
+    16 tiles of 256², a field of view in each image record, every other
+    annotation box-only). Every loss finite, 4 K4 forwards and 4 K4
+    backwards a step; s/step. Then two ``--deterministic`` runs of
+    CONFIG_STEPS steps on the PanNuke config, each a process of its own as a
+    user starts it (the two side by side): their weights compared bit for
+    bit, and every op that torch warned has no deterministic implementation
+    printed. Returns the launches of the first two runs."""
+    import re
+
+    import torch
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.tools import train as train_tool
+    from nuhtc_tpu_torch.tools.synthetic import synthetic_nucls
+    from nuhtc_tpu_torch.utils import checkpoint as ckpt
+
+    opts = synthetic_nucls(os.path.join(tmp, "nucls_release"), splits=(("train", 16),),
+                           fovloc=True)
+    nucls = dict(ann_file=opts["data.train.sup.ann_file"],
+                 img_prefix=opts["data.train.sup.img_prefix"],
+                 seg_prefix=opts["data.train.sup.seg_prefix"])
+    datas = {CROP_CONFIGS[0]: _release_data(ctx),
+             CROP_CONFIGS[1]: dict(train=dict(dataset=nucls), test=nucls)}
+    counts = {}
+    for name in CROP_CONFIGS:
+        base = os.path.join(REPO, "configs", "nuhtc", name)
+        cfg_path, note = _train_config(tmp, base, datas[name], "train_" + name[:-3])
+        work = os.path.join(tmp, "work_" + name[:-3])
+        timing = []
+        reset_counts()
+        t0 = time.perf_counter()
+        state = train_tool.main([cfg_path, "--work-dir", work, "--iters-per-epoch",
+                                 str(CONFIG_STEPS), "--max-epochs", "1", "--no-validate",
+                                 "--seed", "0"], trainer_kw=dict(record_timing=timing))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        rows, _ = _train_rows(work)
+        losses = [k for k in rows[0] if k.startswith(("loss", "s0.", "s1.", "s2."))]
+        finite = all(np.isfinite(r[k]) for r in rows for k in losses + ["total", "grad_norm"])
+        if (state.step != CONFIG_STEPS or len(rows) != CONFIG_STEPS or not finite
+                or got["roi_align_backward"] != 4 * CONFIG_STEPS
+                or got["roi_align"] != 4 * CONFIG_STEPS or got["window_attention"]
+                or got["window_block"]):
+            raise AssertionError(f"train {name}: {state.step} steps, {len(rows)} rows, losses "
+                                 f"finite {finite}, launches {got}")
+        cfg = Config.fromfile(cfg_path)
+        batch = cfg.get("samples_per_gpu", None) or cfg.data.get("samples_per_gpu", 8)
+        steps = [sum(t.values()) for t in timing]
+        log(f"train {name} ({note}): tools.train {CONFIG_STEPS} steps at B{batch} in "
+            f"{wall:.3f} s; s/step {', '.join(f'{x:.3f}' for x in steps)} (the first builds "
+            f"the cuDNN plans), {batch / steps[-1]:.2f} img/s at the last; last losses: "
+            + ", ".join(f"{k} {rows[-1][k]:.4f}" for k in ["total"] + losses)
+            + f"; launches {got}")
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+
+    # two --deterministic runs of the PanNuke config, each in a process of its
+    # own, side by side on the card
+    cfg_path, _ = _train_config(tmp, CONFIG, _release_data(ctx), "det_pannuke")
+    params, warned, procs = [], set(), []
+    t0 = time.perf_counter()
+    try:
+        for run in range(2):
+            with open(os.path.join(tmp, f"det_{run}.err"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "nuhtc_tpu_torch.tools.train", cfg_path,
+                     "--work-dir", os.path.join(tmp, f"det_{run}"), "--iters-per-epoch",
+                     str(CONFIG_STEPS), "--max-epochs", "1", "--no-validate", "--deterministic",
+                     "--seed", "0"], cwd=REPO, stdout=subprocess.DEVNULL, stderr=err))
+        codes = [proc.wait(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for run, code in enumerate(codes):
+        with open(os.path.join(tmp, f"det_{run}.err")) as f:
+            err = f.read()
+        if code != 0:
+            raise AssertionError(f"--deterministic run {run}: exit {code}\n{err[-4000:]}")
+        warned |= set(re.findall(r"(\S+) does not have a deterministic implementation", err))
+        blob = ckpt.read_checkpoint(os.path.join(tmp, f"det_{run}", "checkpoints"))
+        params.append({k: v for part in ("params", "ema_params") for k, v in
+                       ((f"{part}.{n}", t) for n, t in blob[part].items())})
+    log(f"train --deterministic: two runs side by side, each a process of its own, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    differ = [k for k in params[0] if not torch.equal(params[0][k], params[1][k])]
+    log(f"train --deterministic, PanNuke config, {CONFIG_STEPS} steps twice: "
+        f"{len(params[0]) - len(differ)} of {len(params[0])} weight and EMA tensors bit-equal"
+        + (f"; differ: {differ[:8]}" if differ else "") + "; ops torch warned have no "
+        f"deterministic implementation: {sorted(warned) or 'none'}")
+    return counts
 
 
 SEMI_CONFIG = os.path.join(REPO, "configs", "nuhtc", "semi_base.py")
@@ -1634,7 +1886,8 @@ def _check_semi_k4(calls, backward: bool):
     forward in the maps' type against ``roi_align_plain`` on their f32
     copies (bf16: 2^-7 of the map's largest magnitude; f32: 1e-4), and
     with ``backward`` the gradient against autograd through the plain
-    version (2^-7 of its scale in bf16). Returns the largest errors."""
+    version (2^-7 of its scale in bf16), and a second backward call bit-equal
+    to the first. Returns the largest errors."""
     import torch
     from nuhtc_tpu_torch.ops import roi_align as ra
 
@@ -1655,6 +1908,11 @@ def _check_semi_k4(calls, backward: bool):
             shapes = [tuple(feat.shape)]
             grads, _ = ra.roi_align_sum_backward(g, shapes, rois, [scale], out_size, [ratio],
                                                  [None], False)
+            again, _ = ra.roi_align_sum_backward(g, shapes, rois, [scale], out_size, [ratio],
+                                                 [None], False)
+            if not torch.equal(grads[0], again[0]):
+                raise AssertionError(f"K4 backward at a semi train call {tuple(feat.shape)} "
+                                     f"R{rois.shape[1]} out {out_size}: two calls differ")
             ref, _ = ra.roi_align_sum_backward_plain(g.float(), shapes, rois, [scale], out_size,
                                                      [ratio], [None], False)
             s = max(ref[0].abs().max().item(), 1e-30)
@@ -2068,11 +2326,12 @@ def main() -> int:
         evaluation, patch, context = phase_eval(device, tmp)
         robustness = phase_robustness(device, tmp, context)
         train, k4_backward = phase_train(device, tmp, context)
+        train_configs = phase_train_configs(device, tmp, context)
     with tempfile.TemporaryDirectory() as tmp:
         semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
-                 robustness=robustness, train=train, semi_serve=semi_serve,
-                 semi_train=semi_train)
+                 robustness=robustness, train=train, train_configs=train_configs,
+                 semi_serve=semi_serve, semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

@@ -14,9 +14,10 @@ def set_random_seed(seed: int, deterministic: bool = False) -> int:
     """Seeds Python, numpy and torch; ``deterministic`` also sets
     ``torch.use_deterministic_algorithms(True)`` (``warn_only``: an op
     without a deterministic implementation warns instead of raising; cuBLAS
-    gets the workspace setting it needs for that). K4's backward still adds
-    with f32 atomics, in no fixed order: its sums, and what follows from
-    them, may differ in their last bits from run to run."""
+    gets the workspace setting it needs for that). The port's own kernels
+    add in a fixed order (K4's backward gathers, without atomics), and no op
+    of the supervised train step draws that warning, so two runs of one seed
+    give the same weights bit for bit on the card."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

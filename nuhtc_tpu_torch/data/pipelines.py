@@ -5,12 +5,12 @@ Pad(size_divisor)); the image-corruption catalog (``CORRUPTIONS``,
 and the train transforms the shipped configs use (PhotoMetricDistortion,
 Resize, RandomFlip, RandTranslate/RandRotate/RandShear + RecomputeBox,
 OneOf, Sequential, ShuffledSequential, RandCorrupt, RandPosterize,
-Normalize, Pad, SegRescale), built by name from a config's
-``train_pipeline`` (``build_train_pipeline``) and run with one
-``np.random.RandomState`` (``run_pipeline``), drawing as the JAX package
-draws. The other train transforms of that module (AutoContrast …
-RandErase, Resize_Scale, SmartResize, the crops, FOVCrop, MultiBranch) are
-not ported yet; a config that names one raises KeyError.
+Normalize, Pad, SegRescale, RandomCrop, CusRandomCrop, FOVCrop), built by
+name from a config's ``train_pipeline`` (``build_train_pipeline``) and run
+with one ``np.random.RandomState`` (``run_pipeline``), drawing as the JAX
+package draws. The other train transforms of that module (AutoContrast …
+RandErase, Resize_Scale, SmartResize, MultiBranch) are not ported yet; a
+config that names one raises KeyError.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``. The port
 needs no OpenCV: ``resize_linear_u8`` reproduces that resize for uint8 images
@@ -646,6 +646,98 @@ class SegRescale:
             results["gt_semantic_seg"] = imgproc.resize_nearest(
                 seg, (int(h * self.f), int(w * self.f)))
         return results
+
+
+def _crop_instances(results, y0, x0, ch, cw, allow_negative_crop=False):
+    """Crops the image, the masks and the semantic map to ``[y0:y0+ch,
+    x0:x0+cw]`` (mmdet ``RandomCrop._crop_data``): the boxes shift into the
+    crop and clip to it, instances whose box becomes empty go from the
+    labels, masks and ``ismask`` by one keep set (the kept indices stay
+    sorted, so where masks are a prefix of the boxes, as in NuCLS, they stay
+    one). None when no box is left and ``allow_negative_crop`` is false: the
+    loader then draws another sample."""
+
+    def crop(x):
+        return np.ascontiguousarray(x[y0:y0 + ch, x0:x0 + cw])
+
+    boxes = results.get("gt_bboxes")
+    if boxes is not None and len(boxes):
+        b = boxes - np.array([x0, y0, x0, y0], np.float32)
+        b[:, 0::2] = np.clip(b[:, 0::2], 0, cw)
+        b[:, 1::2] = np.clip(b[:, 1::2], 0, ch)
+        valid = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+        if not valid.any() and not allow_negative_crop:
+            return None
+        keep = np.nonzero(valid)[0]
+        results["gt_bboxes"] = b[keep].astype(np.float32)
+        if "gt_labels" in results and len(results["gt_labels"]) == len(boxes):
+            results["gt_labels"] = np.asarray(results["gt_labels"])[keep]
+        if results.get("ismask") is not None and len(results["ismask"]) == len(boxes):
+            results["ismask"] = np.asarray(results["ismask"])[keep]
+        masks = results.get("gt_masks")
+        if masks is not None and len(masks):
+            mask_keep = keep[keep < len(masks)]
+            results["gt_masks"] = (np.stack([crop(masks[i]) for i in mask_keep]) if len(mask_keep)
+                                   else masks[:0, y0:y0 + ch, x0:x0 + cw])
+    results["img"] = crop(results["img"])
+    if results.get("gt_semantic_seg") is not None:
+        results["gt_semantic_seg"] = crop(results["gt_semantic_seg"])
+    return results
+
+
+def _truthy(v):
+    """The configs pass ``allow_negative_crop='True'``, a string: bool()."""
+    return bool(v)
+
+
+@PIPELINES.register()
+class RandomCrop:
+    """mmdet RandomCrop, ``absolute`` crop type: a ``crop_size`` (h, w)
+    window, cut to the image's size on a short axis, at y then x drawn by
+    ``rng.randint``. None when the crop holds no box and negative crops are
+    not allowed."""
+
+    def __init__(self, crop_size=(256, 256), crop_type="absolute", allow_negative_crop=False,
+                 bbox_clip_border=True):
+        if crop_type != "absolute":
+            raise NotImplementedError(f"crop_type={crop_type!r}: only 'absolute' is ported")
+        if not bbox_clip_border:
+            raise NotImplementedError("bbox_clip_border=False is not ported")
+        self.crop_size = crop_size
+        self.allow_negative_crop = _truthy(allow_negative_crop)
+
+    def __call__(self, results, rng: np.random.RandomState):
+        h, w = results["img"].shape[:2]
+        ch, cw = min(self.crop_size[0], h), min(self.crop_size[1], w)
+        y0 = rng.randint(0, h - ch + 1)
+        x0 = rng.randint(0, w - cw + 1)
+        return _crop_instances(results, y0, x0, ch, cw, self.allow_negative_crop)
+
+
+@PIPELINES.register()
+class CusRandomCrop(RandomCrop):
+    """The reference's RandomCrop with ``ismask`` kept in step, which
+    ``_crop_instances`` does for every crop."""
+
+
+@PIPELINES.register()
+class FOVCrop:
+    """Crops to the image's field of view, ``img_info['fovloc']`` = (x1, y1,
+    x2, y2), clamped to the image (at least one cell); an image without one
+    passes unchanged."""
+
+    def __init__(self, allow_negative_crop=False, bbox_clip_border=True):
+        self.allow_negative_crop = _truthy(allow_negative_crop)
+
+    def __call__(self, results, rng=None):
+        fovloc = (results.get("img_info") or {}).get("fovloc")
+        if fovloc is None:
+            return results
+        x1, y1, x2, y2 = (int(v) for v in fovloc)
+        h, w = results["img"].shape[:2]
+        x1, y1 = max(x1, 0), max(y1, 0)
+        x2, y2 = min(max(x2, x1 + 1), w), min(max(y2, y1 + 1), h)
+        return _crop_instances(results, y1, x1, y2 - y1, x2 - x1, self.allow_negative_crop)
 
 
 # the reference's loading and formatting steps: the loader does their work

@@ -272,12 +272,16 @@ def roi_align_sum_backward(grad_out: torch.Tensor, map_shapes, rois: torch.Tenso
                            with_bias: bool, max_grid: int = 8):
     """K4's backward wrapper: grad_out (B, R, out, out, C) → (one gradient
     (B, Hₗ, Wₗ, C) per map in grad_out's type, the bias gradient (B, R, C) f32
-    or None). The kernel adds every sample's weight × grad_out into an f32
-    buffer per map with atomics and rounds a bf16 map's buffer once.
+    or None). The kernel gathers: a block owns a tile of one map's gradient,
+    adds the weighted grad_out of the RoIs that sample it in index order in
+    f32, and writes each cell once in the map's type; the bias gradient sums
+    the bins in order. No atomics: two calls on the same inputs give the same
+    bits. One call is two launches (the RoIs' footprints and the bias
+    gradient, then the maps).
 
     CPU tensors take ``roi_align_sum_backward_plain``; CUDA tensors launch
     the kernel, once, or raise. ``roi_align_sum_backward.launches`` counts
-    the launches."""
+    the calls that launch it."""
     if grad_out.device.type == "cpu":
         return roi_align_sum_backward_plain(grad_out, map_shapes, rois, spatial_scales,
                                             output_size, sampling_ratios, pool_froms,
@@ -293,13 +297,12 @@ def roi_align_sum_backward(grad_out: torch.Tensor, map_shapes, rois: torch.Tenso
         raise ValueError(f"roi_align_sum_backward: bad shapes {tuple(grad_out.shape)} "
                          f"{map_shapes} {tuple(rois.shape)}")
     dev = grad_out.device
-    bufs = [torch.zeros(s, dtype=torch.float32, device=dev) for s in map_shapes]
-    is_bf16 = grad_out.dtype == torch.bfloat16
-    grads = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in map_shapes] if is_bf16 \
-        else bufs
-    grad_bias = torch.empty((b, r, c), dtype=torch.float32, device=dev) if with_bias else None
     if grad_out.numel() == 0:
-        return grads, None if grad_bias is None else grad_bias.zero_()
+        return ([torch.zeros(s, dtype=grad_out.dtype, device=dev) for s in map_shapes],
+                torch.zeros((b, r, c), dtype=torch.float32, device=dev) if with_bias else None)
+    grads = [torch.empty(s, dtype=grad_out.dtype, device=dev) for s in map_shapes]
+    grad_bias = torch.empty((b, r, c), dtype=torch.float32, device=dev) if with_bias else None
+    span = torch.empty((b, r, n, 4), dtype=torch.int32, device=dev)
 
     import ctypes
 
@@ -311,12 +314,12 @@ def roi_align_sum_backward(grad_out: torch.Tensor, map_shapes, rois: torch.Tenso
     g = grad_out.contiguous()
     rois_c = rois.detach().to(torch.float32).contiguous()
     code = kernels.load().roi_align_sum_backward_launch(
-        (ctypes.c_void_p * n)(*[t.data_ptr() for t in bufs]),
         (ctypes.c_void_p * n)(*[t.data_ptr() for t in grads]),
         (ctypes.c_int * (4 * n))(*spec.dims(map_shapes)),
         (ctypes.c_float * n)(*spec.scales), n, rois_c.data_ptr(), g.data_ptr(),
-        None if grad_bias is None else grad_bias.data_ptr(), b, r, c, output_size, max_grid,
-        int(is_bf16), torch.cuda.current_stream(dev).cuda_stream)
+        None if grad_bias is None else grad_bias.data_ptr(), span.data_ptr(), b, r, c,
+        output_size, max_grid, int(grad_out.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(code, "roi_align_sum_backward")
     roi_align_sum_backward.launches += 1
     return grads, grad_bias

@@ -21,18 +21,30 @@ K4, per stage call and per forward (3 bbox-stage calls + 1 mask-stage call):
   blocks costs), and ``large first``, the reverse; ``no large boxes``: the
   large sixteenth replaced by nucleus-sized boxes (what the large ones cost).
 K3: one ``component_stats`` call.
+
+K4's backward at a train step's four calls (B8, C64 bf16 maps of 128², 64²
+and 128²; three bbox-stage calls at R1024 out 7, one mask call at R256 out
+14), on boxes clustered as a train step samples them
+(``synthetic.clustered_roi_boxes``) and on the uniform boxes of the forward
+(``synthetic.roi_boxes``): per call events and graph times, the largest
+error against the plain version on f32 copies (of the gradient's scale),
+whether a second call gives the same bits; per step the two launches' device
+times from torch.profiler.
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 
 import numpy as np
 import torch
 
 from nuhtc_tpu_torch.ops import components as comp
-from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_sum
-from nuhtc_tpu_torch.tools.synthetic import blob_mask, roi_stage_inputs
+from nuhtc_tpu_torch.ops.roi_align import (roi_align, roi_align_sum, roi_align_sum_backward,
+                                           roi_align_sum_backward_plain)
+from nuhtc_tpu_torch.tools.synthetic import (blob_mask, clustered_roi_boxes, roi_boxes,
+                                             roi_stage_inputs)
 from nuhtc_tpu_torch.tools.timing import cuda_ms, graph_ms
 
 BATCH = 16
@@ -97,6 +109,51 @@ def bench_k3(device):
           f"device (graph) {graph_ms(fn):.4f} ms", flush=True)
 
 
+TRAIN_BATCH = 8
+KERNEL_NAME = re.compile(r"\w+_kernel")  # the kernel's name in a profiler key
+
+
+def bench_k4_backward(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = [(TRAIN_BATCH, 128, 128, 64), (TRAIN_BATCH, 64, 64, 64), (TRAIN_BATCH, 128, 128, 64)]
+    scales = [0.25, 0.125, 0.25]
+    stage = [(1024, (scales, 7, [2, 2, 0], [None, None, 14]))] * 3
+    stage.append((256, (scales, 14, [0, 0, 0], [None, None, None])))
+    for boxes, make in (("clustered", clustered_roi_boxes), ("uniform", roi_boxes)):
+        rng = np.random.RandomState(0)
+        calls = []
+        for r, args in stage:
+            rois = torch.from_numpy(make(rng, TRAIN_BATCH, r)).to(device)
+            g = torch.from_numpy(rng.randn(TRAIN_BATCH, r, args[1], args[1], 64)
+                                 .astype(np.float32)).to(device).bfloat16()
+            calls.append((g, rois, args))
+        ev_total = dev_total = 0.0
+        for g, rois, args in calls:
+            got, got_b = roi_align_sum_backward(g, shapes, rois, *args, True)
+            again, again_b = roi_align_sum_backward(g, shapes, rois, *args, True)
+            same = all(torch.equal(x, y) for x, y in zip(got + [got_b], again + [again_b]))
+            want, _ = roi_align_sum_backward_plain(g.float(), shapes, rois, *args, True)
+            err = max(((x.float() - w).abs().max() / w.abs().max()).item()
+                      for x, w in zip(got, want))
+            fn = lambda g=g, rois=rois, args=args: roi_align_sum_backward(  # noqa: E731
+                g, shapes, rois, *args, True)
+            ev, dev = cuda_ms(fn), graph_ms(fn)
+            ev_total, dev_total = ev_total + ev, dev_total + dev
+            print(f"K4 backward {boxes} R{rois.shape[1]} out {args[1]}: events {ev:.4f} ms, "
+                  f"device (graph) {dev:.4f} ms, bf16 err {err:.5f} of the gradient scale, "
+                  f"bit-equal twice {same}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for g, rois, args in calls:
+                roi_align_sum_backward(g, shapes, rois, *args, True)
+            torch.cuda.synchronize()
+        split = ", ".join(f"{KERNEL_NAME.search(e.key).group()} {e.count}× "
+                          f"{e.self_device_time_total / 1e3:.4f} ms" for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and "roi" in e.key)
+        print(f"K4 backward per train step, {boxes} boxes: events {ev_total:.4f} ms, device "
+              f"(graph) {dev_total:.4f} ms; profiler: {split}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA device")
@@ -106,6 +163,7 @@ def main():
     device = torch.device("cuda", 0)
     bench_k3(device)
     bench_k4(device)
+    bench_k4_backward(device)
 
 
 if __name__ == "__main__":

@@ -114,6 +114,27 @@ def roi_boxes(rng, b, r, extent=512.0):
     return rois
 
 
+def clustered_roi_boxes(rng, b, r, nuclei: int = 40, extent: float = 512.0):
+    """(b, r, 4) boxes as a train step samples them: jittered copies of the
+    boxes of ``nuclei`` nuclei a tile (16-60 px, centres within 0.3 of the
+    side, sides within exp(±0.4)), so that many RoIs cover the same cells,
+    and one eighth of proposals anywhere (8-120 px)."""
+    out = np.zeros((b, r, 4), np.float32)
+    for i in range(b):
+        cx, cy = rng.uniform(20, extent - 20, (2, nuclei))
+        side = rng.uniform(16, 60, nuclei)
+        k = rng.randint(0, nuclei, r)
+        w = side[k] * np.exp(rng.uniform(-0.4, 0.4, r))
+        h = side[k] * np.exp(rng.uniform(-0.4, 0.4, r))
+        x = cx[k] + rng.uniform(-0.3, 0.3, r) * side[k]
+        y = cy[k] + rng.uniform(-0.3, 0.3, r) * side[k]
+        out[i] = np.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], -1)
+        n = r // 8
+        xy = rng.uniform(0, extent - 32, (n, 2))
+        out[i, :n] = np.concatenate([xy, xy + rng.uniform(8, 120, (n, 2))], -1)
+    return out
+
+
 def roi_stage_inputs(device, batch: int = 16, box_r: int = 1512, mask_r: int = 500,
                      channels: int = 64):
     """The RoI inputs of one forward at the main path's shapes: the two fine
@@ -198,7 +219,7 @@ def synthetic_pannuke(rng: np.random.RandomState, n: int, size: int = 256,
 
 
 def synthetic_nucls(root: str, splits=(("train", 8), ("unlabeled", 8), ("test", 4)),
-                    size: int = 256, seed: int = 0) -> dict:
+                    size: int = 256, seed: int = 0, fovloc: bool = False) -> dict:
     """A release in the NuCLS schema of ``configs/nuhtc/semi_base.py`` under
     ``root``: ``datasets/NuCLS/rgb`` and ``rgb_seg`` PNGs and
     ``coco/NuCLS/NuCLS_annt_RLE_<split>.json`` for each (split, tiles) of
@@ -206,13 +227,17 @@ def synthetic_nucls(root: str, splits=(("train", 8), ("unlabeled", 8), ("test", 
     ``tools.preprocess_pannuke``: the five PanNuke classes relabelled onto
     the eight NuCLS ones (annotation k of class c takes class (c + 5·(k mod
     2)) mod 8), every other annotation box-only (``ismask`` 0), and the
-    "unlabeled" split without annotations. Returns the config options that
-    point ``semi_base.py`` at it, the unlabelled split with ``filter_empty``
-    off (its images have no annotations)."""
+    "unlabeled" split without annotations. With ``fovloc`` each image record
+    also carries a field of view, ``fovloc`` = [x1, y1, x2, y2] drawn from
+    ``RandomState(seed + 1)`` (each edge up to a quarter of the tile in),
+    which ``FOVCrop`` crops to; without it the files are as before. Returns
+    the config options that point ``semi_base.py`` at it, the unlabelled
+    split with ``filter_empty`` off (its images have no annotations)."""
     from nuhtc_tpu_torch.data.classes import dataset_classes
     from nuhtc_tpu_torch.tools import preprocess_pannuke
 
     rng = np.random.RandomState(seed)
+    fov_rng = np.random.RandomState(seed + 1)
     os.makedirs(root, exist_ok=True)
     ds, coco = os.path.join(root, "datasets", "NuCLS"), os.path.join(root, "coco", "NuCLS")
     cats = [dict(id=c + 1, name=n) for c, n in enumerate(dataset_classes("NuCLSCocoDataset"))]
@@ -230,6 +255,11 @@ def synthetic_nucls(root: str, splits=(("train", 8), ("unlabeled", 8), ("test", 
         for k, ann in enumerate(data["annotations"]):
             ann["category_id"] = (ann["category_id"] - 1 + 5 * (k % 2)) % 8 + 1
             ann["ismask"] = 1 - k % 2
+        if fovloc:
+            for img in data["images"]:
+                lo = fov_rng.randint(0, size // 4 + 1, 2)
+                hi = size - fov_rng.randint(0, size // 4 + 1, 2)
+                img["fovloc"] = [int(lo[0]), int(lo[1]), int(hi[0]), int(hi[1])]
         if split == "unlabeled":
             data["annotations"] = []
         data["categories"] = cats

@@ -39,9 +39,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="skip the periodic evaluation (reference --no-validate)")
     ap.add_argument("--deterministic", action="store_true",
                     help="seed Python, numpy and torch and ask torch for deterministic "
-                    "algorithms (reference --deterministic). K4's backward still adds "
-                    "with f32 atomics in no fixed order, so gradients may differ in "
-                    "their last bits between runs")
+                    "algorithms (reference --deterministic): two runs of one seed give "
+                    "the same weights bit for bit")
     ap.add_argument("--launcher", choices=["none"], default="none",
                     help="'none' only: one process on one device; data-parallel "
                     "training is not ported yet")

@@ -669,9 +669,10 @@ def test_roi_align_sum_backward_cpu_is_autograd_of_plain():
 def test_roi_align_sum_backward_kernel_matches_plain(cuda, out, ratio, pool_from, c):
     """``roi_align_sum`` on CUDA maps that require grad: its grad_fn launches
     the backward kernel once. f32 within 1e-4 of each map's gradient scale
-    (atomics add in another order); bf16 within 2^-7 of the f32 plain
+    (the kernel adds in another order); bf16 within 2^-7 of the f32 plain
     gradients' scale (one rounding of the f32 sums). The bias gradient is
-    the sum of grad_out over the bins."""
+    the sum of grad_out over the bins. A second launch on the same inputs
+    gives the same bits, in both types (the kernel adds in a fixed order)."""
     args = _stage_args(out, ratio, pool_from)
     maps, rois, bias, g = _backward_case(cuda, torch.float32, c, out, ratio, pool_from)
     before_f, before_b = roi_align.launches, roi_align_sum_backward.launches
@@ -688,15 +689,21 @@ def test_roi_align_sum_backward_kernel_matches_plain(cuda, out, ratio, pool_from
         assert scale > 0.1 and m.grad.dtype == torch.float32
         assert (m.grad - w).abs().max().item() <= 1e-4 * scale
     assert (bias.grad - want_b).abs().max().item() <= 1e-4 * want_b.abs().max().item()
+    again, again_b = roi_align_sum_backward(g, shapes, rois, *args, True)
+    assert all(torch.equal(m.grad, a) for m, a in zip(maps, again))
+    assert torch.equal(bias.grad, again_b)
 
     maps16, _, bias16, _ = _backward_case(cuda, torch.bfloat16, c, out, ratio, pool_from)
     roi_align_sum(maps16, rois, *args, bias=bias16).backward(g.bfloat16())
     torch.cuda.synchronize()
-    assert roi_align_sum_backward.launches == before_b + 2
+    assert roi_align_sum_backward.launches == before_b + 3
     want32, _ = roi_align_sum_backward_plain(g.bfloat16().float(), shapes, rois, *args, True)
     for m, w in zip(maps16, want32):
         assert m.grad.dtype == torch.bfloat16
         assert (m.grad.float() - w).abs().max().item() <= 2.0 ** -7 * w.abs().max().item()
+    again, again_b = roi_align_sum_backward(g.bfloat16(), shapes, rois, *args, True)
+    assert all(torch.equal(m.grad, a) for m, a in zip(maps16, again))
+    assert torch.equal(bias16.grad, again_b)
 
 
 def _pyramid_case(device, dtype, c=64, b=2, side=256, r=120, seed=0):
