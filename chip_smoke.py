@@ -137,6 +137,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      ``--deterministic`` runs of 2 steps on the PanNuke config, each a
      process of its own: their weights compared bit for bit, and the ops
      torch warned have no deterministic implementation printed.
+ 12c. the other RoI-head families (``phase_variants``): the PanNuke config
+     as it stands with its roi head's type switched in configs written to
+     the temporary directory. ``HybridTaskCascadeRoIHead_Cus`` (a mask head
+     per stage, chained by info-flow) served in WSI mode at B16 (12 K1, 4
+     K4, ≥ 1 K3 a forward; tiles/s beside the lite engine's, timed in turns)
+     and held against an f32 engine through the plain versions
+     (``_strict_vs_f32`` with CUS_SCORE_TOL), then ``tools.train`` for 2
+     steps at B8 (every loss finite, the three ``loss_mask`` among them; 6
+     K4 and 6 K4-backward launches a step; the stage-2 mask call's backward
+     bit-equal over three calls); ``fuse_test`` of
+     ``HybridTaskCascadeRoIHead_Lite_Fuse`` at B16 (12 K1, ≥ 1 K3 a forward;
+     K3's boxes and areas of the fused instance maps exactly equal to
+     ``component_stats_plain``'s) and 2 train steps of it
+     (``loss_binary_seg``, 4 K4 and 4 K4-backward launches a step);
  13. the semi-supervised recipe (``phase_semi``), configs/nuhtc/semi_base.py
      as shipped (Mask R-CNN, Swin-T, FPN 64, 8 classes) on a synthetic NuCLS
      release written by the phase: serving at B16 in WSI mode and on the
@@ -160,7 +174,8 @@ time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
 by path: wsi, strict, slide, embed, eval, patch, robustness, train,
-train_configs, semi_serve, semi_train; K4's
+train_configs, cus_serve, cus_train, fuse_serve, fuse_train, semi_serve,
+semi_train; K4's
 backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
@@ -604,12 +619,13 @@ def phase_slice(device):
 NUHTC_MATCH_MIN, NUHTC_SCORE_TOL, NUHTC_IOU_MEDIAN = 0.7, 0.05, 0.95
 
 
-def _strict_vs_f32(engine, tiles):
-    """The strict path of ``engine`` (bf16, tier attn: K2, K3, K4) against
-    an f32 engine on the card with the Swin tier "none", ``roi_align_sum_plain``
-    and ``component_stats_plain``, on the bf16 engine's weights, over the
+def _strict_vs_f32(engine, tiles, config=CONFIG, label="strict path", score_tol=NUHTC_SCORE_TOL):
+    """The path of ``engine`` (``config``; bf16, its Swin tier, K3, K4)
+    against an f32 engine of the same contract (preprocess, masks) on the
+    card with the Swin tier "none", ``roi_align_sum_plain`` and
+    ``component_stats_plain``, on the bf16 engine's weights, over the
     same tiles: no kernel launched in the f32 run; ≥ NUHTC_MATCH_MIN of its
-    detections matched one to one (``_match``), |Δscore| ≤ NUHTC_SCORE_TOL,
+    detections matched one to one (``_match``), |Δscore| ≤ ``score_tol``,
     the pairs' median IoU ≥ NUHTC_IOU_MEDIAN. Printed beside them, for
     finding a stage that diverges: the FPN's finest level, the semantic
     logits (their sign is what the component proposals threshold), and the
@@ -654,7 +670,9 @@ def _strict_vs_f32(engine, tiles):
         return res, seen
 
     got, seen16 = traced_run(engine)
-    ref = init_detector(CONFIG, None, batch_size=BATCH, dtype=torch.float32, swin_kernel="none")
+    ref = init_detector(config, None, batch_size=BATCH, dtype=torch.float32, swin_kernel="none",
+                        device_preprocess=engine.device_preprocess,
+                        compact_masks=engine.compact_masks)
     ref.model.load_state_dict({k: v.float() for k, v in engine.model.state_dict().items()})
     reset_counts()  # before the patch: the counters are read off these very names
     plain_sum, plain_stats = roi_extractor.roi_align_sum, components.component_stats
@@ -665,7 +683,7 @@ def _strict_vs_f32(engine, tiles):
     finally:
         roi_extractor.roi_align_sum, components.component_stats = plain_sum, plain_stats
     if any(read_counts().values()):
-        raise AssertionError(f"strict vs f32: the plain f32 path launched a kernel: "
+        raise AssertionError(f"{label} vs f32: the plain f32 path launched a kernel: "
                              f"{read_counts()}")
     del ref
     total, d_score, ious = 0, [], []
@@ -679,20 +697,20 @@ def _strict_vs_f32(engine, tiles):
     p2_16, p2_32 = seen16["p2"], seen32["p2"]
     s16, s32 = seen16["sem"], seen32["sem"]
     dp2 = (p2_16 - p2_32).abs()
-    log(f"strict path bf16 (K2, K3, K4) vs f32 plain on the card, the same bf16-rounded weights, "
+    log(f"{label} bf16 vs f32 plain on the card, the same bf16-rounded weights, "
         f"{len(tiles)} tiles: FPN p2 max |Δ| {dp2.max().item():.4f} of max "
         f"|p2| {p2_32.abs().max().item():.3f} (mean |Δ| {dp2.mean().item():.5f});"
         f" semantic logits max |Δ| {(s16 - s32).abs().max().item():.4f}, sign differs at "
         f"{((s16 > 0) != (s32 > 0)).float().mean().item():.5f} of the cells; proposals a tile "
         f"RPN {seen16['rpn']:.1f} / {seen32['rpn']:.1f}, components {seen16['ws']:.1f} / "
         f"{seen32['ws']:.1f} (bf16 / f32)")
-    log(f"strict path bf16 vs f32: {len(ious)} of {total} detections matched ({rate:.3f}); "
+    log(f"{label} bf16 vs f32: {len(ious)} of {total} detections matched ({rate:.3f}); "
         f"|Δscore| median {np.median(d_score):.4f}, max {d_score.max():.4f}; box IoU of the pairs "
         f"median {np.median(ious):.4f}, min {ious.min():.4f} (allowed: ≥ {NUHTC_MATCH_MIN} "
-        f"matched, |Δscore| ≤ {NUHTC_SCORE_TOL}, median IoU ≥ {NUHTC_IOU_MEDIAN})")
-    if rate < NUHTC_MATCH_MIN or d_score.max() > NUHTC_SCORE_TOL or \
+        f"matched, |Δscore| ≤ {score_tol}, median IoU ≥ {NUHTC_IOU_MEDIAN})")
+    if rate < NUHTC_MATCH_MIN or d_score.max() > score_tol or \
             np.median(ious) < NUHTC_IOU_MEDIAN:
-        raise AssertionError("strict path: the bf16 card path disagrees with the f32 plain path")
+        raise AssertionError(f"{label}: the bf16 card path disagrees with the f32 plain path")
     return dict(matched=rate, score_max=float(d_score.max()), iou_median=float(np.median(ious)))
 
 
@@ -1846,6 +1864,249 @@ def phase_train_configs(device, tmp, ctx):
     return counts
 
 
+CUS_ROI = "HybridTaskCascadeRoIHead_Cus"
+FUSE_ROI = "HybridTaskCascadeRoIHead_Lite_Fuse"
+VARIANT_STEPS = 2  # steps of each training run of phase_variants
+# The _Cus serve path (WSI mode) in bf16 against f32 plain, set before its
+# first run. Its detections come out of the same bbox cascade as the lite
+# path's (the per-stage mask heads run after the NMS and move no box or
+# score), and its input is the device preprocess's, rounded once to bf16
+# (one rounding of 2^-9 beside the ~40 layers', 1 % on the random walk),
+# so NUHTC_MATCH_MIN and NUHTC_IOU_MEDIAN hold as derived there. The score
+# bound takes the number of pairs into account: NUHTC_SCORE_TOL is four
+# sigma of that random walk (sigma = 0.0125 of a score), and the largest of
+# n ~ 5,000 matched pairs lies near sqrt(2 ln n) = 4.1 sigma (the strict
+# path's max read 0.0483, 97 % of it); five sigma, 0.0625, leaves a
+# 1-in-1.7-million tail per pair (both signs), 0.3 % for the batch.
+CUS_SCORE_TOL = 0.0625
+
+
+def _variant_config(tmp, roi_type, name):
+    """The PanNuke config with its roi head's type switched, as name.py."""
+    path = os.path.join(tmp, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = {CONFIG!r}\nmodel = dict(roi_head=dict(type={roi_type!r}))\n")
+    return path
+
+
+def _serve_batches(engine, batches):
+    """run_batch over ``batches``, synchronized → (seconds, detections)."""
+    import torch
+
+    t0 = time.perf_counter()
+    n_det = 0
+    for tiles in batches:
+        results = engine.run_batch(tiles)
+        for r in results:
+            check_detections(r["boxes"], r["scores"])
+            n_det += len(r["scores"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, n_det
+
+
+def _variant_train(tmp, ctx, cfg_path, name, capture=None):
+    """``tools.train.main`` for VARIANT_STEPS steps without evaluation on
+    phase_eval's release → (state, train rows, per-step timing, launches,
+    wall seconds). ``capture``: a list that receives the K4 calls of the
+    first step that take a gradient."""
+    import torch
+    from nuhtc_tpu_torch.models import roi_extractor
+    from nuhtc_tpu_torch.tools import train as train_tool
+
+    path, _ = _train_config(tmp, cfg_path, _release_data(ctx), "train_" + name)
+    work = os.path.join(tmp, "work_" + name)
+    plain_sum = roi_extractor.roi_align_sum
+
+    def capturing_sum(maps, rois, *args, **kw):
+        out = plain_sum(maps, rois, *args, **kw)
+        if out.grad_fn is not None and capture is not None and len(capture) < 6:
+            capture.append(([m.detach().clone() for m in maps], rois.detach().clone(), args))
+        return out
+
+    timing = []
+    roi_extractor.roi_align_sum = capturing_sum
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state = train_tool.main([path, "--work-dir", work, "--iters-per-epoch",
+                                 str(VARIANT_STEPS), "--max-epochs", "1", "--no-validate",
+                                 "--seed", "0"], trainer_kw=dict(record_timing=timing))
+        torch.cuda.synchronize()
+    finally:
+        roi_extractor.roi_align_sum = plain_sum
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rows, _ = _train_rows(work)
+    return state, rows, timing, counts, wall
+
+
+def phase_variants(device, tmp, ctx):
+    """The two other RoI-head families of ``build_detector`` at full width:
+    the PanNuke config as it stands (Swin-T 96, depths 2-2-6-2, FPN 64, 5
+    classes, bf16, random weights from seed 0 with the objectness lifted)
+    with its roi head's type switched in a config written here.
+    (a) ``HybridTaskCascadeRoIHead_Cus`` (a mask head per stage, chained by
+    info-flow, sigmoids averaged) served through ``init_detector`` and
+    ``run_batch`` in WSI mode at B16, 256² tiles ×2: 12 K1, 4 K4 and ≥ 1
+    K3 a forward; its tiles/s beside the lite engine's over the same tiles,
+    timed in turns (lite, _Cus, _Cus, lite); one batch against an f32
+    engine through the plain versions on the same bf16-rounded weights
+    (``_strict_vs_f32``). (b) ``tools.train`` of the _Cus config for
+    VARIANT_STEPS steps at B8 on phase_eval's release: every loss finite,
+    ``s0/s1/s2.loss_mask`` among them; K4 and K4's backward 6 times a step;
+    the last captured K4 call (stage 2's mask RoIs) through K4's backward
+    three times, bit-equal; s/step and its split. (c) ``fuse_test`` of the
+    ``_Lite_Fuse`` config at B16 (512² input; the seg logits' bias centred
+    on each class's median over the first batch, so that the class maps
+    hold instances): 12 K1 and ≥ 1 K3 a forward, no K4; the instances'
+    boxes and areas from K3 (``component_stats`` over the B·C instance
+    maps) equal to ``component_stats_plain`` on the same maps, exactly, and
+    the fused boxes equal to them; tiles/s. (d) ``tools.train`` of the
+    _Lite_Fuse config for VARIANT_STEPS steps at B8: every loss finite,
+    ``loss_binary_seg`` among them; 4 K4 and 4 K4-backward launches a step.
+    Returns the launches of the four paths."""
+    import torch
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.ops import roi_align as ra
+    from nuhtc_tpu_torch.ops.components import component_stats, component_stats_plain
+    from nuhtc_tpu_torch.tools.synthetic import lift_objectness, synthetic_tiles
+
+    t_phase = time.perf_counter()
+    cus_cfg = _variant_config(tmp, CUS_ROI, "pannuke_cus")
+    fuse_cfg = _variant_config(tmp, FUSE_ROI, "pannuke_fuse")
+
+    # (a) _Cus serving, WSI mode, in turns with the lite engine
+    engines = {}
+    for name, path in (("lite", CONFIG), ("cus", cus_cfg)):
+        engines[name] = init_detector(path, None, batch_size=BATCH, device_preprocess=True,
+                                      compact_masks=True)
+        lift_objectness(engines[name].model)
+    heads = engines["cus"].model.roi_head.mask_head
+    if not (isinstance(heads, torch.nn.ModuleList) and len(heads) == 3
+            and hasattr(heads[2], "conv_res")):
+        raise AssertionError("variants (a): the _Cus config did not build three mask heads")
+    rng = np.random.RandomState(7)
+    batches = [synthetic_tiles(rng, BATCH, TILE) for _ in range(3)]
+    for eng in engines.values():
+        eng.run_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    lite_s, _ = _serve_batches(engines["lite"], batches[1:2])
+    reset_counts()
+    cus_s, cus_det = _serve_batches(engines["cus"], batches[1:])
+    cus_serve = read_counts()
+    lite_s2, _ = _serve_batches(engines["lite"], batches[2:])
+    check_counts("variants (a) _Cus serve", cus_serve, 2, "window_block")
+    lite_rate = 2 * BATCH / (lite_s + lite_s2)
+    log(f"variants (a) _Cus serve (WSI mode, tier block, B{BATCH}, 512² input, bf16): "
+        f"{2 * BATCH / cus_s:.2f} tiles/s against the lite engine's {lite_rate:.2f} over the "
+        f"same tiles in turns (lite, _Cus, _Cus, lite); {cus_det / (2 * BATCH):.2f} "
+        f"detections/tile; launches {cus_serve}")
+    del engines["lite"]
+    cus_f32 = _strict_vs_f32(engines.pop("cus"), batches[1], config=cus_cfg,
+                             label="_Cus serve (WSI mode)", score_tol=CUS_SCORE_TOL)
+
+    # (b) _Cus training
+    captured = []
+    state, rows, timing, cus_train, wall = _variant_train(tmp, ctx, cus_cfg, "cus", captured)
+    loss_keys = [k for k in rows[0] if k.startswith(("loss", "s0.", "s1.", "s2."))]
+    finite = all(np.isfinite(r[k]) for r in rows for k in loss_keys + ["total", "grad_norm"])
+    if (state.step != VARIANT_STEPS or not finite
+            or any(f"s{i}.loss_mask" not in loss_keys for i in range(3))
+            or cus_train["roi_align"] != 6 * VARIANT_STEPS
+            or cus_train["roi_align_backward"] != 6 * VARIANT_STEPS
+            or cus_train["window_attention"] or cus_train["window_block"]
+            or cus_train["component_stats"] < VARIANT_STEPS or len(captured) != 6):
+        raise AssertionError(f"variants (b) _Cus train: {state.step} steps, losses {loss_keys} "
+                             f"finite {finite}, launches {cus_train}, captured {len(captured)}")
+    maps, rois, args = captured[-1]
+    shapes = [tuple(m.shape) for m in maps]
+    gen = torch.Generator(device=device).manual_seed(12)
+    g = torch.randn((rois.shape[0], rois.shape[1], args[1], args[1], shapes[0][3]),
+                    generator=gen, device=device).to(maps[0].dtype)
+    grads = [ra.roi_align_sum_backward(g, shapes, rois, *args, True) for _ in range(3)]
+    same = all(torch.equal(a, b) for other in grads[1:]
+               for a, b in zip(grads[0][0] + [grads[0][1]], other[0] + [other[1]]))
+    if not same or args[1] != 14:
+        raise AssertionError(f"variants (b): K4's backward at stage 2's mask call (out "
+                             f"{args[1]}): three calls bit-equal {same}")
+    split = {k: timing[-1][k] for k in ("loader_wait_s", "forward_s", "backward_s",
+                                        "optimizer_s")}
+    log(f"variants (b) _Cus tools.train {VARIANT_STEPS} steps at B{TRAIN_BATCH} in {wall:.3f} s: "
+        f"s/step {', '.join(f'{sum(t.values()):.3f}' for t in timing)} (the first builds the "
+        f"cuDNN plans); the last step: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + "; last losses: " + ", ".join(f"{k} {rows[-1][k]:.4f}" for k in ["total"] + loss_keys)
+        + f"; K4's backward at stage 2's mask call (B{rois.shape[0]} R{rois.shape[1]} out 14) "
+        f"bit-equal over 3 calls; launches {cus_train}")
+
+    # (c) fuse_test
+    engine = init_detector(fuse_cfg, None, batch_size=BATCH, tile_size=TILE)
+    lift_objectness(engine.model)
+    model = engine.model
+    xs = [torch.from_numpy(engine.preprocess(tiles)).to(device, engine.dtype)
+          for tiles in batches]
+    with torch.no_grad():
+        _, sem = model.roi_head.semantic_head(model.extract_feats(xs[0]))
+        seg = model.roi_head.seg_branch(xs[0], sem)[1]
+        model.roi_head.seg_branch.conv_seg.bias -= seg.reshape(-1, seg.shape[-1]).median(
+            dim=0).values.to(engine.dtype)
+    model.fuse_test(xs[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [model.fuse_test(x) for x in xs[1:]]
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    fuse_serve = read_counts()
+    forwards = len(outs)
+    if (fuse_serve["window_block"] != 12 * forwards or fuse_serve["window_attention"]
+            or fuse_serve["roi_align"] or fuse_serve["component_stats"] < forwards):
+        raise AssertionError(f"variants (c) fuse_test: launches {fuse_serve} over {forwards} "
+                             f"forwards")
+    n_inst = 0
+    for out in outs:
+        b, c, oh, ow = out["fuse_inst"].shape
+        if (b, c, oh, ow) != (BATCH, 5, TILE, TILE) or out["fuse_boxes"].shape[-1] != 5:
+            raise AssertionError(f"variants (c): fuse_test shapes {tuple(out['fuse_inst'].shape)}")
+        inst = out["fuse_inst"].reshape(b * c, oh, ow)
+        roots = out["fuse_roots"].reshape(b * c, -1)
+        valid = out["fuse_valid"].reshape(b * c, -1)
+        raw = torch.where(inst > 0, inst - 1, oh * ow)
+        kb, ka = component_stats(raw, roots)
+        pb, pa = component_stats_plain(raw, roots)
+        fused = out["fuse_boxes"].reshape(b * c, -1, 5)[..., :4]
+        if not (torch.equal(kb, pb) and torch.equal(ka, pa)
+                and torch.equal(fused[valid], pb[valid])):
+            raise AssertionError("variants (c): K3's boxes and areas of the fused instances "
+                                 "differ from component_stats_plain's")
+        n_inst += int(valid.sum())
+    if n_inst == 0:
+        raise AssertionError("variants (c): fuse_test found no instance")
+    log(f"variants (c) fuse_test (B{BATCH}, {xs[0].shape[1]}² input, {oh}² original frame, "
+        f"{c} classes, bf16): "
+        f"{forwards * BATCH / fuse_s:.2f} tiles/s; {n_inst / (forwards * BATCH):.2f} instances/"
+        f"tile; K3's boxes and areas over the {BATCH * 5} class maps equal to "
+        f"component_stats_plain's, exactly; launches {fuse_serve}")
+    del engine, model
+
+    # (d) _Lite_Fuse training
+    state, rows, timing, fuse_train, wall = _variant_train(tmp, ctx, fuse_cfg, "fuse")
+    loss_keys = [k for k in rows[0] if k.startswith(("loss", "s0.", "s1.", "s2."))]
+    finite = all(np.isfinite(r[k]) for r in rows for k in loss_keys + ["total", "grad_norm"])
+    if (state.step != VARIANT_STEPS or not finite or "loss_binary_seg" not in loss_keys
+            or fuse_train["roi_align"] != 4 * VARIANT_STEPS
+            or fuse_train["roi_align_backward"] != 4 * VARIANT_STEPS
+            or fuse_train["window_attention"] or fuse_train["window_block"]):
+        raise AssertionError(f"variants (d) _Lite_Fuse train: {state.step} steps, losses "
+                             f"{loss_keys} finite {finite}, launches {fuse_train}")
+    log(f"variants (d) _Lite_Fuse tools.train {VARIANT_STEPS} steps at B{TRAIN_BATCH} in "
+        f"{wall:.3f} s: s/step {', '.join(f'{sum(t.values()):.3f}' for t in timing)}; last "
+        f"losses: " + ", ".join(f"{k} {rows[-1][k]:.4f}" for k in ["total"] + loss_keys)
+        + f"; launches {fuse_train}")
+    log(f"variants: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(cus_serve=cus_serve, cus_train=cus_train, fuse_serve=fuse_serve,
+                fuse_train=fuse_train), cus_f32
+
+
 SEMI_CONFIG = os.path.join(REPO, "configs", "nuhtc", "semi_base.py")
 SEMI_SPLITS = (("train", 16), ("unlabeled", 16), ("test", 8))  # tiles of the NuCLS release
 SEMI_ITERS = 3  # steps an epoch of phase_semi
@@ -2294,6 +2555,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
@@ -2327,11 +2589,12 @@ def main() -> int:
         robustness = phase_robustness(device, tmp, context)
         train, k4_backward = phase_train(device, tmp, context)
         train_configs = phase_train_configs(device, tmp, context)
+        variants, _ = phase_variants(device, tmp, context)
     with tempfile.TemporaryDirectory() as tmp:
         semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
                  robustness=robustness, train=train, train_configs=train_configs,
-                 semi_serve=semi_serve, semi_train=semi_train)
+                 **variants, semi_serve=semi_serve, semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4
@@ -2352,6 +2615,8 @@ def main() -> int:
     ]
     if any(k["launches"] < 1 for k in kernels_line):
         raise AssertionError(f"a kernel was never launched on the main paths: {kernels_line}")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s from the start, the build "
+        f"included")
     log(json.dumps({"kernels": kernels_line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

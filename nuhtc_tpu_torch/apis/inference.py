@@ -198,7 +198,10 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
     """Loads a reference (mmdet-named) ``.pth`` state dict, as the JAX
     package's ``convert_torch_state_dict`` maps one: the ModuleList form of
     the lite mask head (``roi_head.mask_head.0.*``) loads into the one head
-    (a later index overwrites an earlier, as there); the buffers the
+    (a later index overwrites an earlier, as there), while a full-cascade
+    model (``lite=False``) takes ``roi_head.mask_head.N.*`` into its head N,
+    ``conv_res`` too (the JAX package's ``map_torch_key`` sends every index
+    to its one lite head and cannot load such a file); the buffers the
     reference also stores (relative_position_index, num_batches_tracked) are
     rebuilt here, not loaded; any other key the model lacks (SeesawLoss's
     ``cum_samples``) is skipped, counted on stdout and returned. A key of the
@@ -209,7 +212,7 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
     for k, v in ckpt.get("state_dict", ckpt).items():
         if k.endswith("relative_position_index") or "num_batches_tracked" in k:
             continue
-        key = _MASK_HEAD_LIST.sub("roi_head.mask_head.", k)
+        key = k if k in own else _MASK_HEAD_LIST.sub("roi_head.mask_head.", k)
         if key not in own:
             unmatched.append(k)
             continue

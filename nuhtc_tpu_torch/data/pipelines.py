@@ -5,12 +5,13 @@ Pad(size_divisor)); the image-corruption catalog (``CORRUPTIONS``,
 and the train transforms the shipped configs use (PhotoMetricDistortion,
 Resize, RandomFlip, RandTranslate/RandRotate/RandShear + RecomputeBox,
 OneOf, Sequential, ShuffledSequential, RandCorrupt, RandPosterize,
-Normalize, Pad, SegRescale, RandomCrop, CusRandomCrop, FOVCrop), built by
-name from a config's ``train_pipeline`` (``build_train_pipeline``) and run
-with one ``np.random.RandomState`` (``run_pipeline``), drawing as the JAX
-package draws. The other train transforms of that module (AutoContrast …
-RandErase, Resize_Scale, SmartResize, MultiBranch) are not ported yet; a
-config that names one raises KeyError.
+Normalize, Pad, SegRescale, RandomCrop, CusRandomCrop, FOVCrop) and the
+rest of that module's (the color ops AutoContrast, RandEqualize,
+RandSolarize, RandColor, RandBrightness, RandContrast, RandSharpness;
+RandErase; Resize_Scale, SmartResize; MultiBranch), built by name from a
+config's ``train_pipeline`` (``build_train_pipeline``) and run with one
+``np.random.RandomState`` (``run_pipeline``), drawing as the JAX package
+draws.
 
 The JAX package resizes with ``cv2.resize(..., INTER_LINEAR)``. The port
 needs no OpenCV: ``resize_linear_u8`` reproduces that resize for uint8 images
@@ -21,6 +22,7 @@ nearest).
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional, Sequence
 
@@ -738,6 +740,179 @@ class FOVCrop:
         x1, y1 = max(x1, 0), max(y1, 0)
         x2, y2 = min(max(x2, x1 + 1), w), min(max(y2, y1 + 1), h)
         return _crop_instances(results, y1, x1, y2 - y1, x2 - x1, self.allow_negative_crop)
+
+
+# --------------------------------------------------------------------------- #
+# color ops, cutout, resize variants and the semi-supervised views
+# (reference rand_aug.py:120-263, 770-863, 1038; resize_scale.py)
+# --------------------------------------------------------------------------- #
+@PIPELINES.register()
+class AutoContrast:
+    def __init__(self, prob=0.5):
+        self.prob = prob
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255)
+        lo, hi = img.min(), img.max()
+        if hi > lo:
+            results["img"] = (img - lo) * (255.0 / (hi - lo))
+        return results
+
+
+@PIPELINES.register()
+class RandEqualize:
+    def __init__(self, prob=0.5):
+        self.prob = prob
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255).astype(np.uint8)
+        results["img"] = np.stack([imgproc.equalize_hist_u8(img[..., c]) for c in range(3)],
+                                  -1).astype(np.float32)
+        return results
+
+
+@PIPELINES.register()
+class RandSolarize:
+    def __init__(self, prob=0.5, threshold=128):
+        self.prob, self.threshold = prob, threshold
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255)
+        # as the JAX package reads its test: a scalar threshold draws
+        # uniform(0, threshold), a sequence is used as it is
+        thr = self.threshold if hasattr(self.threshold, "__len__") else rng.uniform(
+            0, self.threshold)
+        results["img"] = np.where(img >= thr, 255.0 - img, img)
+        return results
+
+
+@PIPELINES.register()
+class RandColor:
+    """Random color jitter towards grayscale (PIL Color enhance analog)."""
+
+    def __init__(self, prob=0.5, factor=(0.5, 1.5)):
+        self.prob, self.factor = prob, factor
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255)
+        gray = imgproc.rgb_to_gray_u8(img.astype(np.uint8)).astype(np.float32)[..., None]
+        f = rng.uniform(*self.factor)
+        results["img"] = np.clip(gray + f * (img - gray), 0, 255)
+        return results
+
+
+@PIPELINES.register()
+class RandBrightness:
+    def __init__(self, prob=0.5, factor=(0.5, 1.5)):
+        self.prob, self.factor = prob, factor
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        results["img"] = np.clip(results["img"] * rng.uniform(*self.factor), 0, 255)
+        return results
+
+
+@PIPELINES.register()
+class RandContrast:
+    def __init__(self, prob=0.5, factor=(0.5, 1.5)):
+        self.prob, self.factor = prob, factor
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255)
+        mean = img.mean()
+        results["img"] = np.clip(mean + rng.uniform(*self.factor) * (img - mean), 0, 255)
+        return results
+
+
+@PIPELINES.register()
+class RandSharpness:
+    def __init__(self, prob=0.5, factor=(0.0, 2.0)):
+        self.prob, self.factor = prob, factor
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = np.clip(results["img"], 0, 255).astype(np.float32)
+        blur = imgproc.gaussian_blur(img, (3, 3), 0)
+        f = rng.uniform(*self.factor)
+        results["img"] = np.clip(blur + f * (img - blur), 0, 255)
+        return results
+
+
+@PIPELINES.register()
+class RandErase:
+    """Random rectangular cutouts: each patch is erased from the image (fill
+    128), from every gt mask and from the semantic map (fill 0), so that no
+    gt supervises nuclei inside a featureless cutout."""
+
+    def __init__(self, prob=0.7, n_iterations=(1, 5), size=(0.0, 0.2), squared=True,
+                 img_fill_val=128):
+        self.prob, self.n_iterations, self.size, self.squared = prob, n_iterations, size, squared
+        self.img_fill_val = img_fill_val
+
+    def __call__(self, results, rng):
+        if rng.rand() >= self.prob:
+            return results
+        img = results["img"]
+        h, w = img.shape[:2]
+        for _ in range(rng.randint(self.n_iterations[0], self.n_iterations[1] + 1)):
+            sw = rng.uniform(*self.size)
+            sh = sw if self.squared else rng.uniform(*self.size)
+            ph, pw = max(int(h * sh), 1), max(int(w * sw), 1)
+            y0, x0 = rng.randint(0, max(h - ph, 1)), rng.randint(0, max(w - pw, 1))
+            img[y0:y0 + ph, x0:x0 + pw] = self.img_fill_val
+            masks = results.get("gt_masks")
+            if masks is not None and len(masks):
+                masks[:, y0:y0 + ph, x0:x0 + pw] = 0
+            if results.get("gt_semantic_seg") is not None:
+                results["gt_semantic_seg"][y0:y0 + ph, x0:x0 + pw] = 0
+        results["img"] = img
+        return results
+
+
+@PIPELINES.register()
+class Resize_Scale(Resize):
+    """Resize by a fixed scale factor, keeping the ratio."""
+
+    def __init__(self, scale_factor=2.0):
+        super().__init__(img_scale=None, keep_ratio=True)
+        self.scale_factor = scale_factor
+
+    def __call__(self, results, rng=None):
+        h, w = results["img"].shape[:2]
+        target = (int(h * self.scale_factor + 0.5), int(w * self.scale_factor + 0.5))
+        return super().__call__(results, rng, img_scale=target)
+
+
+@PIPELINES.register()
+class SmartResize(Resize):
+    """Resize to a target, keeping the ratio (the reference's name)."""
+
+
+@PIPELINES.register()
+class MultiBranch:
+    """Several augmented views of one sample (the teacher/student branches
+    of semi-supervised training): each branch's pipeline runs on its own
+    deep copy, in the order the branches are given, drawing from the one
+    ``rng``. Returns a dict of the branches' results."""
+
+    def __init__(self, **branches):
+        self.branches = {k: build_train_pipeline(v) for k, v in branches.items()}
+
+    def __call__(self, results, rng):
+        return {name: run_pipeline(p, copy.deepcopy(results), rng)
+                for name, p in self.branches.items()}
 
 
 # the reference's loading and formatting steps: the loader does their work

@@ -1,6 +1,10 @@
 """Build the port's detector from the reference-style config tree, read as
-nuhtc_tpu/models/build.py reads it: the HTC schema (lite roi head) maps onto
-NuHTC; any other ``type`` is a registered detector (``DETECTORS``, e.g.
+nuhtc_tpu/models/build.py reads it: the HTC schema maps onto NuHTC, whose
+RoI-head family follows the roi head's type (``*Lite*``: one mask head at the
+final stage; ``*Fuse*``: the n-class seg branch besides; any other, e.g.
+``HybridTaskCascadeRoIHead_Cus``: a mask head per stage with info-flow; an
+explicit ``roi_head.lite`` / ``roi_head.lite_fuse`` key overrides the name);
+any other detector ``type`` is a registered detector (``DETECTORS``, e.g.
 MaskRCNN) built from the config keys that are its constructor arguments."""
 
 from __future__ import annotations
@@ -62,8 +66,8 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
     test_cfg = dict(test_cfg or model_cfg.get("test_cfg") or {})
     roi = dict(model_cfg.get("roi_head") or {})
     roi_type = str(roi.get("type", "HybridTaskCascadeRoIHead_Lite"))
-    if not roi.get("lite", "Lite" in roi_type) or roi.get("lite_fuse", "Fuse" in roi_type):
-        raise ValueError(f"build_detector: the port runs the lite roi head, not {roi_type!r}")
+    lite = bool(roi.get("lite", "Lite" in roi_type))
+    lite_fuse = bool(roi.get("lite_fuse", "Fuse" in roi_type))
     neck = dict(model_cfg.get("neck") or {})
     backbone = {k: v for k, v in dict(model_cfg.get("backbone") or {}).items()
                 if k in _BACKBONE_KEYS}
@@ -102,6 +106,8 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
         scale_factor=scale_factor,
         backbone_cfg=backbone,
         rcnn_sampler=rcnn_sampler,
+        lite=lite,
+        lite_fuse=lite_fuse,
     )
 
 

@@ -1,6 +1,6 @@
 """NuHTC detector, batched inference (port of nuhtc_tpu/models/detector.py).
 
-The lite Hybrid Task Cascade with component ("watershed") proposals:
+The Hybrid Task Cascade with component ("watershed") proposals:
 
   img (B, H, W, 3) → Swin-T → FPN → RPN proposals → fused semantic head →
   component proposals, prepended → 3 cascade stages (attention RoI features
@@ -8,16 +8,26 @@ The lite Hybrid Task Cascade with component ("watershed") proposals:
   stages) → stage-averaged Seesaw scores → multiclass NMS (score 0.35, the
   top 2048 candidates, IoU 0.5, top 500) → mask head on the detections.
 
+Three RoI-head families, as ``build_detector`` picks them from the config:
+``lite`` (``HybridTaskCascadeRoIHead_Lite``) has one mask head, at the final
+stage; the full cascade (``lite=False``, ``HybridTaskCascadeRoIHead_Cus``)
+has a mask head per stage, chained by HTC's info-flow (each head's
+``conv_res`` takes the previous head's feature), trained at every stage and
+sigmoid-averaged at test; ``lite_fuse`` (``_Lite_Fuse``) adds the n-class
+``HTCSegBranch``, whose per-class watershed instances ``fuse_test`` returns.
+
 Outputs are padded to fixed shapes, as in the JAX package.
 
-``compute_losses`` is the supervised train path of the lite head (port of
+``compute_losses`` is the supervised train path (port of
 nuhtc_tpu/models/detector.py:539-865 with ``exact_rois=True``: the port
 computes the exact RoIAlign semantics, never the TPU's banded extraction):
 RPN assign/sample/losses, train-budget proposals, the semantic Dice loss,
-component proposals injected from the detached semantic logits, three
-interleaved cascade stages with re-assignment (random, instance-balanced
-or OHEM sampler), and the mask Dice loss at the final stage. Boxes are
-detached where the JAX package stops gradients; every RoI feature goes
+the seg branch's ``loss_binary_seg`` (and with ``fuse_aux_losses`` its
+distance and global-class losses), component proposals injected from the
+detached semantic logits, three interleaved cascade stages with
+re-assignment (random, instance-balanced or OHEM sampler), and the mask
+Dice loss at the final stage (at every stage for the full cascade). Boxes
+are detached where the JAX package stops gradients; every RoI feature goes
 through ``roi_align_sum``, whose gradient on the card is K4's backward.
 """
 
@@ -31,6 +41,7 @@ from torch import nn
 
 from nuhtc_tpu_torch.models import losses as L
 from nuhtc_tpu_torch.models.bbox_head import Shared2FCBBoxHeadWithProb, seesaw_activation
+from nuhtc_tpu_torch.models.extra_heads import HTCSegBranch, soft_distance_target
 from nuhtc_tpu_torch.models.fpn import FPN
 from nuhtc_tpu_torch.models.mask_head import FusedSemanticHead, HTCMaskHead
 from nuhtc_tpu_torch.models.roi_extractor import stage_roi_features
@@ -39,7 +50,9 @@ from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
 from nuhtc_tpu_torch.ops import nms as nms_ops
 from nuhtc_tpu_torch.ops.anchors import grid_anchors
-from nuhtc_tpu_torch.ops.components import component_proposals_batched
+from nuhtc_tpu_torch.ops.components import component_proposals_batched, resize_align_corners
+from nuhtc_tpu_torch.ops.mask_paste import paste_masks
+from nuhtc_tpu_torch.ops.watershed import watershed_segmentation
 from nuhtc_tpu_torch.train import samplers as S
 from nuhtc_tpu_torch.train import targets as T
 
@@ -54,16 +67,29 @@ SAMPLERS = ("random", "instance_balanced", "ohem")
 
 
 class RoIHead(nn.Module):
-    """Holds the RoI-stage heads under the reference's ``roi_head.*`` names."""
+    """Holds the RoI-stage heads under the reference's ``roi_head.*`` names:
+    one ``mask_head`` (lite) or a ModuleList of one per stage, stage 0
+    without ``conv_res`` (``roi_head.mask_head.{0,1,2}.*``), and with
+    ``lite_fuse`` the ``seg_branch``."""
 
-    def __init__(self, num_classes: int, channels: int, num_stages: int):
+    def __init__(self, num_classes: int, channels: int, num_stages: int, lite: bool = True,
+                 lite_fuse: bool = False):
         super().__init__()
         self.semantic_head = FusedSemanticHead(in_channels=channels, conv_out_channels=channels)
         self.bbox_head = nn.ModuleList(
             Shared2FCBBoxHeadWithProb(num_classes=num_classes, in_channels=channels)
             for _ in range(num_stages))
-        self.mask_head = HTCMaskHead(in_channels=channels, conv_out_channels=channels,
-                                     num_classes=num_classes)
+        if lite:
+            self.mask_head = HTCMaskHead(in_channels=channels, conv_out_channels=channels,
+                                         num_classes=num_classes)
+        else:
+            self.mask_head = nn.ModuleList(
+                HTCMaskHead(in_channels=channels, conv_out_channels=channels,
+                            num_classes=num_classes, with_conv_res=stage > 0)
+                for stage in range(num_stages))
+        if lite_fuse:
+            self.seg_branch = HTCSegBranch(in_channels=channels, conv_out_channels=channels,
+                                           num_classes=num_classes)
 
 
 class NuHTC(nn.Module):
@@ -77,7 +103,8 @@ class NuHTC(nn.Module):
                  watershed_proposal: bool = True, watershed_max: int = 512,
                  watershed_min_area: int = 10, scale_factor: float = 2.0,
                  nms_candidates: int = 2048, backbone_cfg: dict | None = None,
-                 rcnn_sampler: str = "random"):
+                 rcnn_sampler: str = "random", lite: bool = True, lite_fuse: bool = False,
+                 fuse_max_instances: int = 256, fuse_aux_losses: bool = False):
         super().__init__()
         if rcnn_sampler not in SAMPLERS:
             raise ValueError(f"NuHTC: rcnn_sampler must be one of {SAMPLERS}, not {rcnn_sampler!r}")
@@ -91,12 +118,14 @@ class NuHTC(nn.Module):
         self.watershed_proposal, self.watershed_max = watershed_proposal, watershed_max
         self.watershed_min_area, self.scale_factor = watershed_min_area, scale_factor
         self.nms_candidates = nms_candidates
+        self.lite, self.lite_fuse = lite, lite_fuse
+        self.fuse_max_instances, self.fuse_aux_losses = fuse_max_instances, fuse_aux_losses
         self.backbone = SwinTransformer(**(backbone_cfg or {}))
         dims = [self.backbone.patch_embed.projection.out_channels * 2 ** i
                 for i in range(len(self.backbone.stages))]
         self.neck = FPN(in_channels=dims, out_channels=fpn_channels)
         self.rpn_head = RPNHead(in_channels=fpn_channels, feat_channels=fpn_channels)
-        self.roi_head = RoIHead(num_classes, fpn_channels, num_stages)
+        self.roi_head = RoIHead(num_classes, fpn_channels, num_stages, lite, lite_fuse)
 
     def _roi_features(self, feats, semantic_feat, rois, out_size: int, sampling_ratio: int,
                       sem_pool_from: int | None):
@@ -113,11 +142,21 @@ class NuHTC(nn.Module):
         return cls.reshape(b, p, -1), reg.reshape(b, p, 4)
 
     def _mask_forward(self, feats, semantic_feat, boxes):
-        """boxes (B, D, 4) in the network-input frame → mask probs (B, D, 28, 28)."""
+        """boxes (B, D, 4) in the network-input frame → mask probs (B, D, 28,
+        28). The full cascade runs every stage's head on the same features,
+        chained by info-flow, and averages their sigmoids."""
         b, d, _ = boxes.shape
         mf = self._roi_features(feats, semantic_feat, boxes, 14, 0, None)
-        logits = self.roi_head.mask_head(mf.reshape(b * d, *mf.shape[2:]))
-        return torch.sigmoid(logits[..., 0]).reshape(b, d, 28, 28)
+        mf = mf.reshape(b * d, *mf.shape[2:])
+        if self.lite:
+            probs = torch.sigmoid(self.roi_head.mask_head(mf)[..., 0])
+        else:
+            last, probs = None, 0.0
+            for head in self.roi_head.mask_head:
+                logits, last = head(mf, res_feat=last, return_feat=True)
+                probs = probs + torch.sigmoid(logits[..., 0])
+            probs = probs / float(self.num_stages)
+        return probs.reshape(b, d, 28, 28)
 
     def _multiclass_nms(self, boxes, scores, valid) -> Dict[str, torch.Tensor]:
         """boxes (B, P, 4), scores (B, P, C+1), valid (B, P) → padded top
@@ -208,6 +247,30 @@ class NuHTC(nn.Module):
                                                det["boxes"] * self.scale_factor)
         return det
 
+    @torch.no_grad()
+    def fuse_test(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``_Lite_Fuse`` inference: the seg branch over the image and the
+        semantic feature, upsampled to the original frame (bilinear,
+        ``align_corners=True``), then the per-class watershed of every class
+        map of the batch at once (one K3 launch on the card). The reference
+        returns these instances alone. img (B, H, W, 3) → dict: fuse_boxes
+        (B, C, K, 5) [x1, y1, x2+1, y2+1, 0.36] in the original frame,
+        fuse_valid (B, C, K), fuse_inst (B, C, Ho, Wo) int32 instance maps,
+        fuse_roots (B, C, K) (instance k is ``fuse_inst == fuse_roots + 1``)."""
+        if not self.lite_fuse:
+            raise ValueError("model was built with lite_fuse=False")
+        b, h, w, _ = img.shape
+        oh, ow = int(round(h / self.scale_factor)), int(round(w / self.scale_factor))
+        _, semantic_feat = self.roi_head.semantic_head(self.extract_feats(img))
+        _, seg_pred, _, _ = self.roi_head.seg_branch(img, semantic_feat)
+        seg_ori = resize_align_corners(seg_pred.permute(0, 3, 1, 2), (oh, ow))
+        c = seg_ori.shape[1]
+        boxes5, valid, inst, roots = watershed_segmentation(
+            seg_ori.reshape(b * c, oh, ow), max_instances=self.fuse_max_instances,
+            min_area=self.watershed_min_area)
+        return {"fuse_boxes": boxes5.reshape(b, c, -1, 5), "fuse_valid": valid.reshape(b, c, -1),
+                "fuse_inst": inst.reshape(b, c, oh, ow), "fuse_roots": roots.reshape(b, c, -1)}
+
 
     # ------------------------------------------------------------------ #
     # training
@@ -251,13 +314,68 @@ class NuHTC(nn.Module):
                               gt_inds=sel.gt_inds, labels=sel.labels)
         return take(rois), take(cls_score), take(bbox_pred), samp, take(is_gt) & sel.is_pos
 
-    def _mask_train_forward(self, feats, semantic_feat, boxes):
+    def _mask_train_forward(self, feats, semantic_feat, boxes, stage: int):
         """boxes (B, S, 4) → mask logits (B, S, 28, 28) of the lite head (no
-        info-flow, as the reference _Lite._mask_forward_train)."""
+        info-flow, as the reference _Lite._mask_forward_train), or of stage
+        ``stage``'s head of the full cascade, whose info-flow input the heads
+        before it compute feature-only on the same RoI features."""
         b, s, _ = boxes.shape
         mf = self._roi_features(feats, semantic_feat, boxes, 14, 0, None)
-        logits = self.roi_head.mask_head(mf.reshape(b * s, *mf.shape[2:]))
+        mf = mf.reshape(b * s, *mf.shape[2:])
+        if self.lite:
+            logits = self.roi_head.mask_head(mf)
+        else:
+            heads, last = self.roi_head.mask_head, None
+            for i in range(stage):
+                last = heads[i](mf, res_feat=last, return_logits=False, return_feat=True)
+            logits = heads[stage](mf, res_feat=last)
         return logits[..., 0].reshape(b, s, 28, 28)
+
+    def _pasted_max(self, batch, keep, out_shape, distance: bool) -> torch.Tensor:
+        """Per image, the pixelwise max over the kept gt instances of their
+        patches pasted into the input frame: the soft pasted probabilities,
+        or with ``distance`` the ``soft_distance_target`` of each binary
+        mask → (B, H, W). f32 products even under autocast, as the mask
+        targets'."""
+        out = []
+        with torch.autocast(keep.device.type, enabled=False):
+            for gtb, gtp, k in zip(batch["gt_boxes"], batch["gt_patches"], keep):
+                full = paste_masks(gtp, gtb, out_shape, threshold=0.5 if distance else -1.0)
+                full = full.float() * k.float()[:, None, None]
+                out.append((soft_distance_target(full) if distance else full).amax(dim=0))
+        return torch.stack(out)
+
+    def _seg_branch_losses(self, img, semantic_feat, batch, losses):
+        """The ``_Lite_Fuse`` seg branch's ``loss_binary_seg`` (and with
+        ``fuse_aux_losses`` ``loss_dist`` and ``loss_global_cls``): the
+        n-class sigmoid CE against the stride-1 class map of ``gt_semantic``;
+        pixels of box-only instances (``gt_ismask`` 0) are left out."""
+        h, w = img.shape[1:3]
+        gt_sem = batch["gt_semantic"]
+        _, seg_pred, seg_dist, seg_cls = self.roi_head.seg_branch(img, semantic_feat)
+        fac = h // gt_sem.shape[1]
+        sem_up = gt_sem.repeat_interleave(fac, dim=1).repeat_interleave(fac, dim=2)
+        cls_ids = torch.arange(1, self.num_classes + 1, device=img.device)
+        gt_seg_c = (sem_up[..., None] == cls_ids).float()
+        ismask, gt_valid = batch.get("gt_ismask"), batch["gt_valid"]
+        pos_mask = 1.0
+        if ismask is not None:
+            with torch.no_grad():
+                union = self._pasted_max(batch, (ismask < 0.5) & gt_valid, (h, w), False)
+                pos_mask = (1.0 - union.clamp(0.0, 1.0))[..., None]
+        losses["loss_binary_seg"] = 0.2 * (L.sigmoid_ce(seg_pred, gt_seg_c) * pos_mask).mean()
+        if not self.fuse_aux_losses:
+            return
+        # the instance-by-instance distance keeps the valley between touching nuclei
+        with torch.no_grad():
+            keep = gt_valid if ismask is None else gt_valid & (ismask > 0.5)
+            gt_dist = self._pasted_max(batch, keep, (h, w), True)
+        losses["loss_dist"] = 0.2 * ((torch.sigmoid(seg_dist)[..., None] - gt_dist[..., None]
+                                      ).abs() * pos_mask).mean()
+        labels = torch.where(gt_valid, batch["gt_labels"], 0).long()
+        present = torch.zeros((labels.shape[0], self.num_classes), device=img.device)
+        present = present.scatter_reduce(1, labels, gt_valid.float(), reduce="amax")
+        losses["loss_global_cls"] = 0.2 * L.sigmoid_ce(seg_cls, present).mean()
 
     def compute_losses(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
                        cum_samples: torch.Tensor, generator: torch.Generator | None = None):
@@ -314,6 +432,8 @@ class NuHTC(nn.Module):
         sem_target = (batch["gt_semantic"] != 0).float()
         losses["loss_semantic_seg"] = L.dice_loss(torch.sigmoid(semantic_logits[..., 0]),
                                                   sem_target)
+        if self.lite_fuse:
+            self._seg_branch_losses(img, semantic_feat, batch, losses)
 
         # ---- component proposals from the detached semantic logits ----------
         proposals, proposals_valid = prop_boxes, prop_valid
@@ -361,11 +481,12 @@ class NuHTC(nn.Module):
                                                   stage, RCNN_SAMPLES, draw_sampler)
             proposals, proposals_valid = refined, refined_valid
 
-            if stage == self.num_stages - 1:  # lite: the mask loss at the final stage
+            # the mask loss at the final stage (lite), at every stage (full cascade)
+            if not self.lite or stage == self.num_stages - 1:
                 mrois = rois2[:, :MASK_SAMPLES]
                 mpos = samp2.is_pos[:, :MASK_SAMPLES]
                 mgt = samp2.gt_inds[:, :MASK_SAMPLES]
-                mask_logits = self._mask_train_forward(feats, semantic_feat, mrois)
+                mask_logits = self._mask_train_forward(feats, semantic_feat, mrois, stage)
                 mtgt = T.mask_targets_from_patches(mrois, mgt, gt_boxes, batch["gt_patches"])
                 mw = mpos.float()
                 if ismask is not None:  # box-only instances give no mask loss

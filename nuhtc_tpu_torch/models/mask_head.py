@@ -1,8 +1,11 @@
 """Mask and semantic heads, NHWC (port of nuhtc_tpu/models/mask_head.py).
 
-- ``HTCMaskHead`` (lite, no info-flow input): 4× 3×3 conv + ReLU, 2×2
-  stride-2 ConvTranspose + ReLU, 1×1 logits (class-agnostic, one channel),
-  28×28 from 14×14 RoI features — the deconv form.
+- ``HTCMaskHead``: 4× 3×3 conv + ReLU, 2×2 stride-2 ConvTranspose + ReLU,
+  1×1 logits (class-agnostic, one channel), 28×28 from 14×14 RoI features —
+  the deconv form. ``with_conv_res`` adds HTC's info-flow input (the full
+  cascade's heads of stages 1 and 2): ``conv_res`` (1×1 + ReLU) of the
+  previous head's feature is added to ``x`` before ``conv0``; ``feat`` is
+  the output of the last 3×3 conv. The lite head has no ``conv_res``.
 - ``FusedSemanticHead``: 1×1 laterals + ReLU, bilinear (align_corners=True)
   upsample-sum at level 0, 4× 3×3 conv + ReLU, 1×1 logits and a 1×1 + ReLU
   embedding.
@@ -21,20 +24,32 @@ from nuhtc_tpu_torch.ops.components import resize_align_corners
 class HTCMaskHead(nn.Module):
     def __init__(self, num_convs: int = 4, in_channels: int = 64,
                  conv_out_channels: int = 64, num_classes: int = 5,
-                 class_agnostic: bool = True):
+                 class_agnostic: bool = True, with_conv_res: bool = False):
         super().__init__()
+        if with_conv_res:
+            self.conv_res = ConvModule(conv_out_channels, conv_out_channels, 1)
         self.convs = nn.ModuleList(
             ConvModule(in_channels if i == 0 else conv_out_channels, conv_out_channels, 3)
             for i in range(num_convs))
         self.upsample = nn.ConvTranspose2d(conv_out_channels, conv_out_channels, 2, stride=2)
         self.conv_logits = nn.Conv2d(conv_out_channels, 1 if class_agnostic else num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (R, S, S, C) → logits (R, 2S, 2S, out) f32."""
+    def forward(self, x: torch.Tensor, res_feat: torch.Tensor | None = None,
+                return_logits: bool = True, return_feat: bool = False):
+        """x (R, S, S, C), ``res_feat`` the previous head's feature or None →
+        logits (R, 2S, 2S, out) f32 and/or the feature (R, S, S, C'), in
+        that order."""
+        if res_feat is not None:
+            x = x + self.conv_res(res_feat)
         for conv in self.convs:
             x = conv(x)
-        x = F.relu(conv_nhwc(self.upsample, x))
-        return conv_nhwc(self.conv_logits, x).float()
+        outs = []
+        if return_logits:
+            y = F.relu(conv_nhwc(self.upsample, x))
+            outs.append(conv_nhwc(self.conv_logits, y).float())
+        if return_feat:
+            outs.append(x)
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 class FusedSemanticHead(nn.Module):

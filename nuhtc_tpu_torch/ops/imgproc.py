@@ -142,6 +142,22 @@ def rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
             ).astype(np.uint8)
 
 
+def equalize_hist_u8(x: np.ndarray) -> np.ndarray:
+    """``cv2.equalizeHist`` of a uint8 (H, W) image: the cumulative histogram
+    above the lowest occupied level i, times the float32 scale 255 / (N -
+    hist[i]), rounded half to even; a constant image stays as it is."""
+    if x.dtype != np.uint8 or x.ndim != 2:
+        raise ValueError(f"equalize_hist_u8 takes a uint8 (H, W) image, got {x.dtype} {x.shape}")
+    hist = np.bincount(x.reshape(-1), minlength=256)
+    lo = int(np.argmax(hist > 0))
+    if hist[lo] == x.size:
+        return x.copy()
+    scale = np.float32(255.0) / np.float32(x.size - hist[lo])
+    lut = np.zeros(256, np.float32)
+    lut[lo + 1:] = np.cumsum(hist[lo + 1:]).astype(np.float32) * scale
+    return np.clip(np.rint(lut), 0, 255).astype(np.uint8)[x]
+
+
 def _sobel(x: np.ndarray, border: str) -> Tuple[np.ndarray, np.ndarray]:
     """The 3 × 3 Sobel derivatives (d/dx, d/dy) of a 2-D image as int32."""
     p = _pad(x.astype(np.int32), 1, border)
@@ -323,6 +339,16 @@ def _gaussian_f32(img: np.ndarray, k: np.ndarray) -> np.ndarray:
     return out
 
 
+def _gaussian3_f32(img: np.ndarray) -> np.ndarray:
+    """The float32 3 × 3 Gaussian of sigma 0 (BORDER_REFLECT_101)."""
+    h, w = img.shape[:2]
+    q, half = np.float32(0.25), np.float32(0.5)
+    p = np.take(img, _reflect_index(w, 1), axis=1)
+    rows = (p[:, 0:w] + p[:, 2:w + 2]) * q + p[:, 1:w + 1] * half
+    p = np.take(rows, _reflect_index(h, 1), axis=0)
+    return (p[0:h] + p[2:h + 2]) * q + p[1:h + 1] * half
+
+
 def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float = 0.0) -> np.ndarray:
     """``cv2.GaussianBlur(img, ksize, sigma)`` (BORDER_REFLECT_101) of a
     float64, float32 or uint8 image, (H, W) or (H, W, C). ``ksize`` is
@@ -332,8 +358,11 @@ def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float = 0.0) -
 
     uint8: OpenCV's bit-exact fixed point (8-bit taps rounded with error
     diffusion, rows then columns in integers, one rounding shift), equal to
-    cv2 5.0.0 at every size. float32: OpenCV's chains of fused
-    multiply-adds (``_gaussian_f32``) for sizes of at least 7 (smaller
+    cv2 5.0.0 at every size. float32 3 × 3 with sigma 0: OpenCV's small
+    symmetric filters with the taps (1/4, 1/2, 1/4), (a + c)/4 + b/2 along
+    rows, then along columns (each product exact, so fused or not is the
+    same), equal to cv2 5.0.0. float32: OpenCV's chains of fused
+    multiply-adds (``_gaussian_f32``) for sizes of at least 7 (other small
     float32 kernels take other code there and are refused here); equal to
     cv2 5.0.0 where W·C is a multiple of 4 (the catalog's tiles), else
     within 1e-7 of it on the last W·C mod 4 values of some rows, where
@@ -350,6 +379,8 @@ def gaussian_blur(img: np.ndarray, ksize: Tuple[int, int], sigma: float = 0.0) -
         v = _separable(img, _gaussian_kernel_q8(kw, sigma), _gaussian_kernel_q8(kh, sigma))
         return np.clip((v + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
     if img.dtype == np.float32:
+        if (kw, kh) == (3, 3) and sigma <= 0:
+            return _gaussian3_f32(img)
         if kw != kh or kw < 7:
             raise ValueError(f"gaussian_blur takes float32 with equal sizes of at least 7, "
                              f"got {ksize}")

@@ -1,8 +1,10 @@
 """Binary morphology on (B, H, W) maps, plain PyTorch.
 
-Port of nuhtc_tpu/ops/morphology.py: the reference's conv-based erosion and
-dilation (5×5 ones kernel, zero padding) and scipy ``binary_fill_holes``
-(border flood of the background, 4-connectivity, to the fixpoint).
+Port of nuhtc_tpu/ops/morphology.py: torchvision's ``gaussian_blur``
+(``gaussian_blur5``: 5 taps, reflect padding), the reference's conv-based
+erosion and dilation (5×5 ones kernel, zero padding), their opening and
+closing, and scipy ``binary_fill_holes`` (border flood of the background,
+4-connectivity, to the fixpoint).
 """
 
 from __future__ import annotations
@@ -20,6 +22,20 @@ def gaussian_kernel1d(kernel_size: int = 5, sigma: float | None = None) -> np.nd
     x = np.linspace(-half, half, kernel_size)
     pdf = np.exp(-0.5 * (x / sigma) ** 2)
     return (pdf / pdf.sum()).astype(np.float32)
+
+
+def gaussian_blur5(img: torch.Tensor, kernel_size: int = 5,
+                   sigma: float | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of (..., H, W) with reflect padding (no edge
+    repeat), in f32: the rows' weighted sum, then the columns', each taken
+    tap by tap in order as the JAX package takes it."""
+    kv = gaussian_kernel1d(kernel_size, sigma)
+    pad = kernel_size // 2
+    h, w = img.shape[-2:]
+    x = F.pad(img.reshape(-1, h, w).float(), (pad, pad, pad, pad), mode="reflect")
+    x = sum(float(kv[i]) * x[:, i:i + h, :] for i in range(kernel_size))
+    x = sum(float(kv[i]) * x[:, :, i:i + w] for i in range(kernel_size))
+    return x.reshape(img.shape).to(img.dtype)
 
 
 def _conv_ones(x: torch.Tensor, ksize: int) -> torch.Tensor:
@@ -47,6 +63,10 @@ def binary_dilation(mask: torch.Tensor, ksize: int = 5, iterations: int = 1) -> 
 
 def binary_open(mask: torch.Tensor, ksize: int = 5, iterations: int = 1) -> torch.Tensor:
     return binary_dilation(binary_erosion(mask, ksize, iterations), ksize, iterations)
+
+
+def binary_close(mask: torch.Tensor, ksize: int = 5, iterations: int = 1) -> torch.Tensor:
+    return binary_erosion(binary_dilation(mask, ksize, iterations), ksize, iterations)
 
 
 def shift(x: torch.Tensor, k: int, dim: int, rev: bool, fill) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """String-keyed registries for config-driven construction (port of
 nuhtc_tpu/registry.py: ``Registry`` and the registries the port uses,
-``DETECTORS``, ``DATASETS``, ``LOSSES`` and ``PIPELINES``).
+``DETECTORS``, ``HEADS``, ``DATASETS``, ``LOSSES`` and ``PIPELINES``).
 
 The reference framework wires every component through mmdet registries
 (`@DETECTORS.register_module()` etc.; see reference
@@ -43,8 +43,10 @@ class Registry:
 
 
 # detectors (other than the HTC schema, which models/build.py maps itself),
-# datasets, losses and the train pipeline's transforms go by name
+# the extra heads, datasets, losses and the train pipeline's transforms go
+# by name
 DETECTORS = Registry("detectors")
+HEADS = Registry("heads")
 DATASETS = Registry("datasets")
 LOSSES = Registry("losses")
 PIPELINES = Registry("pipelines")

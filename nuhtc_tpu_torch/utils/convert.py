@@ -12,6 +12,12 @@ R-CNN names: its one ``bbox_head`` (no stage index) onto
 ``conv_last`` onto ``conv_last`` (the reference's mask_rcnn_part.py name).
 ``map_torch_key`` of the JAX package reads none of those three un-indexed
 or extra names back.
+
+The full cascade's per-stage heads ``mask_heads_{i}`` map onto
+``roi_head.mask_head.{i}.*`` (``conv_res`` a ConvModule as the convs), and
+the ``_Lite_Fuse`` seg branch ``seg_branch`` onto ``roi_head.seg_branch.*``
+under its flax module names (convolutions as convolutions, ``fc_cls`` as a
+linear layer).
 """
 
 from __future__ import annotations
@@ -112,14 +118,21 @@ def torch_key(path: Tuple[str, ...]):
         if rest[0] == "shared_fc1":
             return f"{base}.shared_fcs.1.{leaf}", wfn(_lin)
         return f"{base}.{rest[0]}.{leaf}", wfn(_lin)
-    if top == "mask_head":
-        base = "roi_head.mask_head"
+    m = re.fullmatch(r"mask_heads_(\d+)", top)
+    if m or top == "mask_head":
+        base = f"roi_head.mask_head.{m.group(1)}" if m else "roi_head.mask_head"
         m = re.fullmatch(r"conv(\d+)", rest[0])
         if m:
             return f"{base}.convs.{m.group(1)}.conv.{leaf}", wfn(_conv)
+        if rest[0] == "conv_res":
+            return f"{base}.conv_res.conv.{leaf}", wfn(_conv)
         if rest[0] == "upsample":
             return f"{base}.upsample.{leaf}", wfn(_deconv)
         return f"{base}.{rest[0]}.{leaf}", wfn(_conv)
+    if top == "seg_branch":
+        m = re.fullmatch(r"conv(\d+)", rest[0])
+        name = f"convs.{m.group(1)}" if m else rest[0]
+        return f"roi_head.seg_branch.{name}.{leaf}", wfn(_lin if rest[0] == "fc_cls" else _conv)
     if top == "conv_last":
         return f"conv_last.{leaf}", wfn(_conv)
     return None

@@ -186,7 +186,7 @@ def test_port_never_imports_jax():
                   "tools.analysis_tools.print_metric", "models.losses", "train.targets",
                   "train.samplers", "train.train_state", "train.optim_groups", "train.trainer",
                   "utils.checkpoint", "utils.hooks", "utils.logging", "apis.train",
-                  "tools.train")
+                  "tools.train", "ops.watershed", "models.extra_heads")
         missing = [m for m in walked if "nuhtc_tpu_torch." + m not in new]
         assert not missing, missing
         bad = sorted(m for m in new
@@ -234,6 +234,8 @@ def test_port_sources_name_no_opencv_or_pandas_import():
     assert any(f.endswith(os.path.join("wsi", "infer.py")) for f in files)
     assert any(f.endswith(os.path.join("consep", "compute_stats.py")) for f in files)
     assert any(f.endswith(os.path.join("dataset", "convert_format.py")) for f in files)
+    assert any(f.endswith(os.path.join("ops", "watershed.py")) for f in files)
+    assert any(f.endswith(os.path.join("models", "extra_heads.py")) for f in files)
     sources = {os.path.relpath(f, REPO): open(f).read() for f in files}
     assert not [f for f, text in sources.items() if pat.search(text)]
     assert not [f for f, text in sources.items() if lazy.search(text)]

@@ -750,3 +750,61 @@ def test_multilevel_roi_features_kernel_matches_plain(cuda, out):
     for m, w in zip(maps16, cpu_maps):
         scale = w.grad.abs().max().item()
         assert (m.grad.float().cpu() - w.grad).abs().max().item() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+def test_watershed_segmentation_and_cus_train_step_on_the_card(cuda):
+    """``watershed_segmentation`` (the ``_Lite_Fuse`` instances) on seeded
+    class maps: on the card its boxes and areas come from one K3 launch, and
+    every output equals the CPU run (``component_stats_plain``) exactly.
+    Then one ``compute_losses`` + backward of the full cascade
+    (``HybridTaskCascadeRoIHead_Cus``) on the tiny config at 64², B2: K4
+    forward and backward 6 times each, 3 bbox and 3 mask stages."""
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
+    from nuhtc_tpu_torch.ops.morphology import gaussian_blur5
+    from nuhtc_tpu_torch.ops.watershed import watershed_segmentation
+
+    gen = torch.Generator().manual_seed(0)
+    seg = torch.randn((6, 96, 96), generator=gen)
+    for _ in range(4):
+        seg = gaussian_blur5(seg)
+    seg = seg * 40.0
+    before = tc.component_stats.launches
+    got = watershed_segmentation(seg.to(cuda), max_instances=64)
+    torch.cuda.synchronize()
+    assert tc.component_stats.launches == before + 1
+    want = watershed_segmentation(seg, max_instances=64)
+    assert tc.component_stats.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[1].sum().item() > 10
+
+    cfg = Config.fromfile("configs/nuhtc/htc_lite_tiny_synthetic.py")
+    model_cfg = dict(cfg.model)
+    model_cfg["roi_head"] = dict(model_cfg["roi_head"], type="HybridTaskCascadeRoIHead_Cus")
+    model = build_detector(model_cfg, None, 1.0)
+    init_random_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    rng = np.random.RandomState(0)
+    g = 6
+    centre = rng.uniform(10, 54, (2, g, 2))
+    half = rng.uniform(4, 8, (2, g, 2))
+    sem = np.zeros((2, 16, 16), np.int64)
+    boxes = np.concatenate([centre - half, centre + half], -1).astype(np.float32)
+    for i in range(2):
+        for x1, y1, x2, y2 in (boxes[i] / 4).astype(int):
+            sem[i, y1:y2 + 1, x1:x2 + 1] = 1
+    batch = dict(gt_boxes=boxes, gt_labels=rng.randint(0, 5, (2, g)),
+                 gt_valid=np.ones((2, g), bool), gt_patches=np.ones((2, g, 28, 28), np.float32),
+                 gt_semantic=sem)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    img = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32)).to(cuda)
+    f0, b0 = roi_align.launches, roi_align_sum_backward.launches
+    losses, _ = model.compute_losses(img, batch, torch.zeros((3, 5), device=cuda),
+                                     torch.Generator(device=cuda).manual_seed(0))
+    losses["total"].backward()
+    torch.cuda.synchronize()
+    assert roi_align.launches - f0 == 6 and roi_align_sum_backward.launches - b0 == 6
+    assert all(torch.isfinite(v).item() for v in losses.values())
+    assert all(f"s{s}.loss_mask" in losses for s in range(3))

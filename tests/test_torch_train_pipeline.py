@@ -17,6 +17,15 @@ both packages' datasets:
   severities 4-5), whose bounds tests/test_torch_corruptions.py states; the
   config's ``RandCorrupt`` draws severity 1 of every type, and its images
   are compared exactly too;
+- the rest of the JAX module's transforms, which no shipped config uses: the
+  color ops (``AutoContrast``, ``RandEqualize``, ``RandSolarize`` with a
+  scalar threshold, which draws uniform(0, threshold), and with one per
+  channel, ``RandColor``, ``RandBrightness``, ``RandContrast``,
+  ``RandSharpness``), ``RandErase``, ``Resize_Scale``, ``SmartResize``
+  exactly, and both views of a ``MultiBranch``. Their OpenCV calls are
+  ``equalizeHist`` and the float32 3×3 ``GaussianBlur`` of sigma 0, whose
+  numpy versions equal cv2 5.0.0 (the latter's taps are 1/4, 1/2, 1/4, so
+  its products are exact and its sums the same in any form);
 - the crops (``RandomCrop``, ``CusRandomCrop``, ``FOVCrop``) on samples with
   a field of view and masks for a prefix of the boxes, None on both sides
   where no box is left; the ``train_pipeline`` of every other config that
@@ -108,6 +117,17 @@ TRANSFORMS = [
     dict(type="CusRandomCrop", crop_size=(96, 300), allow_negative_crop="True"),
     dict(type="FOVCrop", allow_negative_crop="True"),
     [dict(type="FOVCrop"), dict(type="CusRandomCrop", crop_size=(256, 256))],
+    dict(type="AutoContrast", prob=0.8),
+    dict(type="RandEqualize", prob=0.8),
+    dict(type="RandSolarize", prob=0.8, threshold=160),
+    dict(type="RandSolarize", prob=0.8, threshold=(100, 128, 200)),
+    dict(type="RandColor", prob=0.8, factor=(0.2, 1.8)),
+    dict(type="RandBrightness", prob=0.8),
+    dict(type="RandContrast", prob=0.8),
+    dict(type="RandSharpness", prob=0.8),
+    dict(type="RandErase", prob=0.9, size=(0.05, 0.3), squared=False),
+    dict(type="Resize_Scale", scale_factor=1.5),
+    dict(type="SmartResize", img_scale=(300, 200)),
 ]
 CROPS = ("RandomCrop", "CusRandomCrop", "FOVCrop")
 
@@ -152,6 +172,26 @@ def test_each_transform_equals_jax(release, cfg):
             assert negative or got is None
         if want is not None:
             _assert_results_equal(got, want)
+        assert jr.randint(1 << 30) == r.randint(1 << 30)
+
+
+def test_multi_branch_equals_jax(release):
+    """Both views of a MultiBranch, drawn one after the other from one rng."""
+    jds, ds = release
+    cfg = [dict(type="MultiBranch",
+                student=[dict(type="RandomFlip", flip_ratio=0.5), dict(type="RandErase", prob=0.9),
+                         dict(type="RandSharpness", prob=0.9)],
+                teacher=[dict(type="RandColor", prob=0.9), dict(type="RandEqualize", prob=0.5)])]
+    jpipe = jp.build_train_pipeline(copy.deepcopy(cfg))
+    pipe = tp.build_train_pipeline(copy.deepcopy(cfg))
+    for seed in range(4):
+        base = _results(ds, seed % len(ds))
+        jr, r = np.random.RandomState(seed), np.random.RandomState(seed)
+        want = jp.run_pipeline(jpipe, copy.deepcopy(base), jr)
+        got = tp.run_pipeline(pipe, copy.deepcopy(base), r)
+        assert list(got) == list(want) == ["student", "teacher"]
+        for name in want:
+            _assert_results_equal(got[name], want[name])
         assert jr.randint(1 << 30) == r.randint(1 << 30)
 
 
