@@ -151,6 +151,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      K3's boxes and areas of the fused instance maps exactly equal to
      ``component_stats_plain``'s) and 2 train steps of it
      (``loss_binary_seg``, 4 K4 and 4 K4-backward launches a step);
+ 12d. the alternative backbones and the tools of the log, anchor, browse
+     and golden kind (``phase_backbones``): ``ViT`` at ViTDet-B's published
+     widths with ``ViT_FPN`` 64, B16 of 512² in bf16 against f32 plain on
+     the same bf16-rounded weights (the bound derived beside VITDET_B),
+     img/s and peak memory, no hand kernel launched; ``SwinUnet`` at its
+     defaults, B16 of 512² in bf16: 11 K1 launches a forward, against tier
+     "none" within 0.05 of each output's scale, tiles/s; the RoI-extractor
+     variants on the ViT_FPN pyramid with 512 clustered RoIs a tile
+     (``selected_roi_features`` 2 K4 launches, ``local_global_roi_features``
+     1, each within 1e-4 of its plain composition on the card, timed beside
+     it and the bound; ``pos_attention_pool`` card vs CPU within 1e-4);
+     ``analyze_logs``/``analyze_wsi_logs cal_train_time`` on phase_train's
+     log.json, ``optimize_anchors`` (k-means) and ``browse_dataset`` (4
+     samples) on phase_eval's release, and the end-to-end golden chain
+     (``misc.run_e2e_golden``) on the card: the device-free hashes equal to
+     tests/goldens/e2e_synthetic_torch.json, the summary beside it;
  13. the semi-supervised recipe (``phase_semi``), configs/nuhtc/semi_base.py
      as shipped (Mask R-CNN, Swin-T, FPN 64, 8 classes) on a synthetic NuCLS
      release written by the phase: serving at B16 in WSI mode and on the
@@ -174,8 +190,8 @@ time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
 by path: wsi, strict, slide, embed, eval, patch, robustness, train,
-train_configs, cus_serve, cus_train, fuse_serve, fuse_train, semi_serve,
-semi_train; K4's
+train_configs, cus_serve, cus_train, fuse_serve, fuse_train, backbones,
+extractors, golden, semi_serve, semi_train; K4's
 backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
 moved once over 3.35 TB/s and the operations over the peak rate for their
 type); the last line is {"ok": true, "device": {...}}.
@@ -2107,6 +2123,311 @@ def phase_variants(device, tmp, ctx):
                 fuse_train=fuse_train), cus_f32
 
 
+# ViTDet-B (detectron2 projects/ViTDet/configs/COCO/mask_rcnn_vitdet_b_100ep.py):
+# embed 768, depth 12, 12 heads, patch 16, MLP ratio 4, qkv bias, window 14 on
+# all blocks but the global 2, 5, 8, 11, decomposed relative position, absolute
+# position from the 224 pretrain grid with a cls token; here at a 512² input
+VITDET_B = dict(img_size=512, patch_size=16, embed_dims=768, depth=12, num_heads=12,
+                mlp_ratio=4.0, qkv_bias=True, use_rel_pos=True, window_size=14,
+                window_block_indexes=(0, 1, 3, 4, 6, 7, 9, 10), pretrain_img_size=224,
+                pretrain_use_cls_token=True, out_every=3)
+VIT_SIDE = 512
+# The ViT and ViT_FPN in bf16 against f32 plain on the same bf16-rounded
+# weights and input, bound derived before the first run (PERF.md §6):
+# bf16 keeps 8 bits (u = 2^-8); each product accumulates in f32 and rounds
+# once, and the residual stream rounds at each of its 24 adds, so the error
+# of a block's output relative to the stream's scale random-walks to about
+# sqrt(24 · k) · u / sqrt(3) with k ≈ 3 roundings an add (the input, the
+# branch, the sum): ~0.014 rms. The norm of the difference over the norm of
+# the f32 output is bounded at 0.03 (about twice that); the largest
+# difference, over 12.6 M outputs a map (five sigma of the per-element error
+# on the largest elements), at 0.08 of the map's largest magnitude.
+VIT_REL_RMS_TOL = 0.03
+VIT_MAX_TOL = 0.08
+UNET_TOL = 0.05  # phase_swin_kernel's K1 tolerance, of each output's scale
+EXTRACT_R = 512  # RoIs a tile for the extractor variants
+VIT_RUNS = 3  # timed forwards of each backbone
+
+
+def _vit_weights(model, seed: int):
+    """``init_random_weights`` for the layers, and the absolute and relative
+    position tables std 0.02, from ``seed``."""
+    import torch
+    from nuhtc_tpu_torch.models.backbones import ViTAttention
+    from nuhtc_tpu_torch.models.build import init_random_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    init_random_weights(model, gen)
+    with torch.no_grad():
+        tables = [model.pos_embed] if getattr(model, "pos_embed", None) is not None else []
+        tables += [p for m in model.modules() if isinstance(m, ViTAttention) and m.use_rel_pos
+                   for p in (m.rel_pos_h, m.rel_pos_w)]
+        for t in tables:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+    return model
+
+
+def _timed(fn, runs: int):
+    """(seconds a call over ``runs`` synchronized calls after a warm-up, the
+    last result)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs, out
+
+
+def _normalized_tiles(rng, n, side, device, dtype):
+    import torch
+    from nuhtc_tpu_torch.data.pipelines import IMG_NORM
+    from nuhtc_tpu_torch.tools.synthetic import synthetic_tiles
+
+    tiles = np.stack(synthetic_tiles(rng, n, side)).astype(np.float32)
+    x = (tiles - np.asarray(IMG_NORM["mean"], np.float32)) / np.asarray(IMG_NORM["std"],
+                                                                        np.float32)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def phase_backbones(device, tmp, ctx):
+    """The alternative backbones, ViT_FPN, the RoI-extractor variants and
+    the log, anchor, dataset-browse and end-to-end golden tools.
+    (a) ``ViT`` at ViTDet-B's published widths (VITDET_B) with ``ViT_FPN``
+    at the PanNuke config's 64 channels, random weights from seed 0, B16
+    tiles of 512² (32² tokens; windowed blocks padded to 42², 9 windows) in
+    bf16 against f32 plain on the same bf16-rounded weights and input
+    (VIT_REL_RMS_TOL, VIT_MAX_TOL); img/s, the peak memory. (b) ``SwinUnet``
+    at its defaults (embed 96, depths 2-2-2-2, heads 3-6-12-24, window 7),
+    B16 of 512² in bf16: 11 K1 launches a forward and no K2, against the
+    same weights through tier "none" within UNET_TOL of each output's
+    scale; tiles/s. (c) The extractors on (a)'s f32 pyramid (64 channels at
+    128², 64², 32², 16²) with EXTRACT_R clustered RoIs a tile:
+    ``selected_roi_features`` over the four levels (2 K4 launches),
+    ``local_global_roi_features`` from level 2 (1 launch), each within 1e-4
+    of the same function through ``roi_align_sum_plain`` on the card, and
+    their times beside the plain version's and the bound;
+    ``pos_attention_pool`` at level 3 against the same call on the CPU,
+    within 1e-4. (d) The host tools: ``analyze_logs`` and
+    ``analyze_wsi_logs cal_train_time`` on phase_train's log.json;
+    ``optimize_anchors`` (k-means) on phase_eval's release;
+    ``browse_dataset`` of 4 samples through the PanNuke train pipeline;
+    the golden chain (``misc.run_e2e_golden``) on the card: every stage's
+    outputs, the device-free hashes equal to the golden's, the summary
+    beside the CPU golden's. Returns the launches of the backbones (b), the
+    extractors (c) and the golden chain (d)."""
+    import copy
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    from nuhtc_tpu_torch.models import roi_extractor_variants as rev
+    from nuhtc_tpu_torch.models.backbones import SwinUnet, ViT
+    from nuhtc_tpu_torch.models.build import init_random_weights
+    from nuhtc_tpu_torch.models.extra_heads import ViT_FPN
+    from nuhtc_tpu_torch.ops import roi_align as ra
+    from nuhtc_tpu_torch.tools.analysis_tools import (
+        analyze_logs, analyze_wsi_logs, optimize_anchors)
+    from nuhtc_tpu_torch.tools.misc import browse_dataset, run_e2e_golden
+    from nuhtc_tpu_torch.tools.synthetic import clustered_roi_boxes
+    from nuhtc_tpu_torch.tools.timing import cuda_ms
+    from nuhtc_tpu_torch.utils.imageio import read_png
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(13)
+
+    # (a) ViTDet-B + ViT_FPN, bf16 against f32 plain
+    reset_counts()
+    vit = _vit_weights(ViT(**VITDET_B), 0).eval()
+    fpn = ViT_FPN(in_channels=VITDET_B["embed_dims"], out_channels=FPN_C).eval()
+    init_random_weights(fpn, torch.Generator().manual_seed(1))
+    vit16, fpn16 = vit.to(device, torch.bfloat16), fpn.to(device, torch.bfloat16)
+    x16 = _normalized_tiles(rng, BATCH, VIT_SIDE, device, torch.bfloat16)
+
+    def vit_forward(model, neck, x):
+        with torch.no_grad():
+            feats = model(x)
+            return feats, neck(feats)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    vit_s, (feats16, pyr16) = _timed(lambda: vit_forward(vit16, fpn16, x16), VIT_RUNS)
+    vit_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    vit32, fpn32 = copy.deepcopy(vit16).float(), copy.deepcopy(fpn16).float()
+    feats32, pyr32 = vit_forward(vit32, fpn32, x16.float())
+    torch.cuda.synchronize()
+    rows = []
+    for name, got, want in ([(f"vit.{i}", g, w) for i, (g, w) in enumerate(zip(feats16, feats32))]
+                            + [(f"fpn.{i}", g, w) for i, (g, w) in enumerate(zip(pyr16, pyr32))]):
+        d = got.float() - want
+        rel_rms = (d.norm() / want.norm()).item()
+        rel_max = (d.abs().max() / want.abs().max()).item()
+        rows.append((name, tuple(want.shape), rel_rms, rel_max))
+        if not (np.isfinite(rel_rms) and rel_rms <= VIT_REL_RMS_TOL and rel_max <= VIT_MAX_TOL):
+            raise AssertionError(f"backbones (a) {name}: bf16 vs f32 plain rel rms {rel_rms:.5f}"
+                                 f" (≤ {VIT_REL_RMS_TOL}), max {rel_max:.5f} (≤ {VIT_MAX_TOL})")
+    if [r[1] for r in rows[-4:]] != [(BATCH, VIT_SIDE // s, VIT_SIDE // s, FPN_C)
+                                     for s in (4, 8, 16, 32)]:
+        raise AssertionError(f"backbones (a): ViT_FPN shapes {[r[1] for r in rows[-4:]]}")
+    vit_counts = read_counts()
+    if any(vit_counts.values()):
+        raise AssertionError(f"backbones (a): the ViT launched a hand kernel: {vit_counts}")
+    log(f"backbones (a) ViTDet-B (embed 768, depth 12, 12 heads, window 14 + 4 global, rel pos)"
+        f" + ViT_FPN 64, B{BATCH} {VIT_SIDE}² bf16: {BATCH / vit_s:.2f} img/s "
+        f"({1e3 * vit_s:.2f} ms a forward), peak {vit_peak:.2f} GiB; bf16 vs f32 plain "
+        f"(rel rms, max rel to the map's largest; bounds {VIT_REL_RMS_TOL}, {VIT_MAX_TOL}): "
+        + ", ".join(f"{n} {s[1]}² {r:.5f} {m:.5f}" for n, s, r, m in rows))
+    del vit, vit16, vit32, fpn16, fpn32, feats16, feats32, pyr16, x16
+    torch.cuda.empty_cache()
+
+    # (b) SwinUnet through K1 against tier "none"
+    unet = SwinUnet(kernel="block").eval()
+    init_random_weights(unet, torch.Generator().manual_seed(2))
+    unet = unet.to(device, torch.bfloat16)
+    ref = copy.deepcopy(unet)
+    for m in ref.modules():
+        if hasattr(m, "kernel"):
+            m.kernel = "none"
+    xu = _normalized_tiles(rng, BATCH, VIT_SIDE, device, torch.bfloat16)
+    with torch.no_grad():
+        unet(xu)  # warm-up: the blocks' kernel packs
+        torch.cuda.synchronize()
+        reset_counts()
+        unet_s, got = _timed(lambda: unet(xu), VIT_RUNS)
+        unet_counts = read_counts()
+        want = ref(xu)
+    forwards = VIT_RUNS + 1
+    if (unet_counts["window_block"] != 11 * forwards or unet_counts["window_attention"]
+            or unet_counts["roi_align"] or unet_counts["component_stats"]):
+        raise AssertionError(f"backbones (b) SwinUnet: launches {unet_counts} over {forwards} "
+                             f"forwards (11 K1 each)")
+    errs = []
+    for g, w in zip(got, want):
+        e, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        errs.append((tuple(w.shape), e, scale))
+        if not np.isfinite(e) or e > UNET_TOL * scale:
+            raise AssertionError(f"backbones (b) SwinUnet {tuple(w.shape)}: K1 vs tier none "
+                                 f"max abs err {e} > {UNET_TOL} × {scale}")
+    log(f"backbones (b) SwinUnet (embed 96, depths 2-2-2-2, window 7), B{BATCH} {VIT_SIDE}² "
+        f"bf16, tier block: {BATCH / unet_s:.2f} tiles/s ({1e3 * unet_s:.2f} ms a forward); "
+        f"K1 vs tier none max abs err / scale per output "
+        + ", ".join(f"{s[1]}²×{s[3]} {e:.4f}/{sc:.2f}" for s, e, sc in errs)
+        + f"; launches {unet_counts}")
+    del unet, ref, xu, got, want
+    torch.cuda.empty_cache()
+
+    # (c) the extractor variants on (a)'s f32 pyramid
+    pyr = [p.contiguous() for p in pyr32]
+    rois = torch.from_numpy(clustered_roi_boxes(rng, BATCH, EXTRACT_R)).to(device)
+    strides = (4, 8, 16, 32)
+    calls = dict(selected=lambda: rev.selected_roi_features(pyr, rois, 7, 2),
+                 local_global=lambda: rev.local_global_roi_features(pyr, rois, 7, 2,
+                                                                    start_level=2))
+    reset_counts()
+    got = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    extract_counts = read_counts()
+    if (extract_counts["roi_align"] != 3 or extract_counts["window_block"]
+            or extract_counts["roi_align_backward"]):
+        raise AssertionError(f"backbones (c): K4 launches {extract_counts} (2 + 1 expected)")
+    real = rev.roi_align_sum
+    rev.roi_align_sum = ra.roi_align_sum_plain
+    try:
+        want = {name: fn() for name, fn in calls.items()}
+        plain_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+    finally:
+        rev.roi_align_sum = real
+    k4_ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+    sel_f, sel_b = [sum(x) for x in zip(
+        roi_work(pyr[:3], rois, [1 / s for s in strides[:3]], 7, [2] * 3, [None] * 3),
+        roi_work(pyr[3:], rois, [1 / strides[3]], 7, [2], [None]))]
+    bias = torch.zeros((BATCH, EXTRACT_R, FPN_C), device=device)
+    lg_f, lg_b = roi_work(pyr[:2], rois, [1 / s for s in strides[:2]], 7, [2, 2], [None] * 2,
+                          bias=bias)
+    bounds = {"selected": bound_ms(sel_f, PEAK_F32, sel_b),
+              "local_global": bound_ms(lg_f, PEAK_F32, lg_b)}
+    for name in calls:
+        e = (got[name] - want[name]).abs().max().item()
+        if got[name].shape != (BATCH, EXTRACT_R, 7, 7, FPN_C) or not np.isfinite(e) or e > 1e-4:
+            raise AssertionError(f"backbones (c) {name}: K4 vs plain max abs err {e}")
+    valid = torch.ones((BATCH, EXTRACT_R), dtype=torch.bool, device=device)
+    valid[:, -EXTRACT_R // 8:] = False  # padding RoIs
+    pooled = rev.pos_attention_pool(pyr[3], rois, 32, valid)
+    pooled_cpu = rev.pos_attention_pool(pyr[3].cpu(), rois.cpu(), 32, valid.cpu())
+    e_pool = (pooled.cpu() - pooled_cpu).abs().max().item()
+    if pooled.shape != (BATCH, EXTRACT_R, FPN_C) or not np.isfinite(e_pool) or e_pool > 1e-4:
+        raise AssertionError(f"backbones (c) pos_attention_pool: card vs CPU max abs err {e_pool}")
+    launches = dict(selected="2 launches", local_global="1 launch")
+    log(f"backbones (c) extractors, B{BATCH} R{EXTRACT_R} clustered, ViT_FPN f32 pyramid "
+        f"{[tuple(p.shape[1:3]) for p in pyr]} C{FPN_C}, out 7 ratio 2: "
+        + "; ".join(f"{name} K4 {k4_ms[name]:.3f} ms ({launches[name]}) plain "
+                    f"{plain_ms[name]:.3f} ms bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+                    f"max abs err {(got[name] - want[name]).abs().max().item():.2e}"
+                    for name in calls)
+        + f"; pos_attention_pool card vs CPU max abs err {e_pool:.2e}; launches {extract_counts}")
+    del pyr, pyr32, rois, got, want
+    torch.cuda.empty_cache()
+
+    # (d) the host tools and the golden chain
+    log_json = os.path.join(tmp, "train_work", "log.json")
+    for tool, argv in ((analyze_logs, ["cal_train_time", log_json]),
+                       (analyze_wsi_logs, ["cal_train_time", log_json])):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            tool.main(argv)
+        if not out.getvalue().startswith(log_json):
+            raise AssertionError(f"backbones (d) {tool.__name__}: {out.getvalue()!r}")
+        log(f"backbones (d) {tool.__name__.rsplit('.', 1)[-1]} cal_train_time: "
+            f"{out.getvalue().strip()}")
+    cfg_path, note = _train_config(tmp, CONFIG, _release_data(ctx), "browse_pannuke")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with redirect_stdout(out):
+        anchors = optimize_anchors.main([cfg_path, "--algorithm", "k-means", "--input-shape",
+                                         "512", "512", "--iters", "100", "--output-dir",
+                                         os.path.join(tmp, "anchors")])
+    with open(os.path.join(tmp, "anchors", "anchor_optimize_result.json")) as f:
+        saved = json.load(f)
+    if saved != anchors or not anchors or "Collected" not in out.getvalue():
+        raise AssertionError(f"backbones (d) optimize_anchors: {out.getvalue()!r}")
+    log(f"backbones (d) optimize_anchors k-means on phase_eval's release in "
+        f"{time.perf_counter() - t0:.2f} s: " + " ".join(out.getvalue().split("\n")[:3]))
+    t0 = time.perf_counter()
+    vis = os.path.join(tmp, "browse")
+    with redirect_stdout(io.StringIO()):
+        browse_dataset.main([cfg_path, "--out", vis, "--num", "4"])
+    pngs = sorted(os.listdir(vis))
+    shapes = {read_png(os.path.join(vis, p)).shape for p in pngs}
+    if len(pngs) != 4 or len(shapes) != 1 or next(iter(shapes))[2] != 3:
+        raise AssertionError(f"backbones (d) browse_dataset: {pngs} {shapes}")
+    log(f"backbones (d) browse_dataset 4 samples through the PanNuke train pipeline ({note}) "
+        f"in {time.perf_counter() - t0:.2f} s: {pngs}, {shapes}")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = run_e2e_golden.build_chain(os.path.join(tmp, "e2e"), str(device),
+                                         log=lambda m: log(f"backbones (d) golden {m}"))
+    golden_counts = read_counts()
+    errs = run_e2e_golden.check(summary, str(device))
+    if errs:
+        raise AssertionError("backbones (d) golden: device-free hashes differ: "
+                             + "; ".join(errs))
+    with open(run_e2e_golden.GOLDEN) as f:
+        cpu = json.load(f)
+    if (golden_counts["window_block"] < 1 or golden_counts["roi_align"] < 1
+            or golden_counts["roi_align_backward"] < 1):
+        raise AssertionError(f"backbones (d) golden: launches {golden_counts}")
+    log(f"backbones (d) golden chain on {device} in {time.perf_counter() - t0:.1f} s: "
+        f"{len(summary['device_free'])} device-free hashes equal to the golden's; launches "
+        f"{golden_counts}")
+    for key in ("test_metrics", "pannuke_pq", "preds", "wsi"):
+        log(f"backbones (d) golden {key}: card {json.dumps(summary[key], sort_keys=True)}")
+        log(f"backbones (d) golden {key}: CPU golden {json.dumps(cpu[key], sort_keys=True)}")
+    log(f"backbones: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(backbones=unet_counts, extractors=extract_counts, golden=golden_counts)
+
+
 SEMI_CONFIG = os.path.join(REPO, "configs", "nuhtc", "semi_base.py")
 SEMI_SPLITS = (("train", 16), ("unlabeled", 16), ("test", 8))  # tiles of the NuCLS release
 SEMI_ITERS = 3  # steps an epoch of phase_semi
@@ -2590,11 +2911,12 @@ def main() -> int:
         train, k4_backward = phase_train(device, tmp, context)
         train_configs = phase_train_configs(device, tmp, context)
         variants, _ = phase_variants(device, tmp, context)
+        backbones = phase_backbones(device, tmp, context)
     with tempfile.TemporaryDirectory() as tmp:
         semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
                  robustness=robustness, train=train, train_configs=train_configs,
-                 **variants, semi_serve=semi_serve, semi_train=semi_train)
+                 **variants, **backbones, semi_serve=semi_serve, semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

@@ -7,6 +7,12 @@ feature (bilinear, ``align_corners=True``, then a 1×1 lateral + ReLU), runs
 upsampled to the image) and a global multi-label class vector;
 ``HTCSegBranch`` is its n-class variant. ``soft_distance_target`` is the
 reference's normalized interior distance (iterated 3×3 erosions).
+
+``ViT_FPN`` (reference nuhtc/necks/vit_fpn.py) turns the ViT's last map into
+a four-level pyramid: transposed convolutions ×4 and ×2 (flax's with kernel
+= stride, whose kernel ``utils/convert.py`` flips), a 1×1 convolution, and a
+3×3 stride-2 convolution with flax's SAME padding ((0, 1) on an even side,
+(1, 1) on an odd one).
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from torch import nn
 from nuhtc_tpu_torch.models.layers import conv_nhwc
 from nuhtc_tpu_torch.ops import morphology
 from nuhtc_tpu_torch.ops.components import resize_align_corners
-from nuhtc_tpu_torch.registry import HEADS
+from nuhtc_tpu_torch.registry import HEADS, NECKS
 
 
 def _same_stride2(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -81,3 +87,21 @@ def soft_distance_target(mask: torch.Tensor, iterations: int = 8) -> torch.Tenso
         cur = morphology.binary_erosion(cur, ksize=3, iterations=1)
         acc = acc + cur
     return acc / iterations
+
+
+@NECKS.register()
+class ViT_FPN(nn.Module):
+    """Single-scale ViT feature → (×4, ×2, ×1, ×½) maps of ``out_channels``."""
+
+    def __init__(self, in_channels: int = 768, out_channels: int = 64):
+        super().__init__()
+        self.up4 = nn.ConvTranspose2d(in_channels, out_channels, 4, stride=4)
+        self.up2 = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
+        self.same = nn.Conv2d(in_channels, out_channels, 1)
+        self.down = nn.Conv2d(in_channels, out_channels, 3, stride=2)
+
+    def forward(self, feats):
+        """feats: the ViT's maps, (B, H/16, W/16, C) last → four NHWC maps."""
+        x = feats[-1]
+        return (conv_nhwc(self.up4, x), conv_nhwc(self.up2, x), conv_nhwc(self.same, x),
+                _same_stride2(self.down, x))

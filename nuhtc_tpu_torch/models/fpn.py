@@ -11,8 +11,10 @@ from typing import Sequence
 from torch import nn
 
 from nuhtc_tpu_torch.models.layers import ConvModule
+from nuhtc_tpu_torch.registry import NECKS
 
 
+@NECKS.register()
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (96, 192, 384, 768),
                  out_channels: int = 64, num_outs: int = 4):

@@ -36,6 +36,7 @@ from nuhtc_tpu_torch.ops.window_block import (
     BlockParams, shift_attn_mask, source_key, window_attention, window_block, window_partition,
     window_reverse,
 )
+from nuhtc_tpu_torch.registry import BACKBONES
 
 KERNEL_TIERS = ("block", "attn", "none")
 
@@ -223,6 +224,7 @@ class PatchEmbed(nn.Module):
         return self.norm(x) if self.norm is not None else x
 
 
+@BACKBONES.register()
 class SwinTransformer(nn.Module):
     """Returns the per-level NHWC features listed in ``out_indices``."""
 

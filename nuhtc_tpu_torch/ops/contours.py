@@ -20,8 +20,11 @@ result ``cv2`` (5.0.0) gives, point for point:
   ``circle`` of the corruption catalog;
 - for the offline slide tools: ``fill_poly`` (OpenCV's edge-list scan
   conversion in 16.16 fixed point, with its clipping), ``convex_hull`` and
-  ``fill_convex_poly``, ``arc_length``, contour and image moments, Hu
-  moments, and ``fit_ellipse``, which holds to a stated tolerance instead.
+  ``fill_convex_poly`` (integer or fixed-point vertices), ``arc_length``,
+  contour and image moments, Hu moments, and ``fit_ellipse``, which holds
+  to a stated tolerance instead;
+- the filled ``ellipse`` of the synthetic PanNuke tool: OpenCV's polygon
+  from its sine table in 16.16 fixed point, filled as a convex polygon.
 
 The retrieval modes offered are ``RETR_EXTERNAL`` (the outer borders that
 lie in no hole), ``RETR_CCOMP`` (two levels: outer borders, each with the
@@ -532,28 +535,67 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
     return np.asarray(lower[:-1] + upper[:-1], np.int32).reshape(-1, 1, 2)
 
 
-def fill_convex_poly(img: np.ndarray, points: np.ndarray, color) -> np.ndarray:
-    """``cv2.fillConvexPoly(img, points, color)`` (8-connected, no shift) for
-    integer vertices, in place (and returned): the edges drawn as lines,
-    then each row filled between a left and a right chain walked down from
-    the topmost vertex, each chain's x in 16.16 fixed point with a rounded
-    slope, both ends rounded half up."""
+def _line_fixed(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color) -> None:
+    """OpenCV's ``Line2``: an 8-connected segment between 16.16 fixed-point
+    end points, clipped to the image (``_clip_line`` on the scaled size),
+    walked one pixel a step along the longer axis from the lower end with
+    the other coordinate stepped by a truncated fixed-point slope and
+    rounded half up, plus the rounded far end point."""
+    h, w = img.shape[:2]
+    inside, x1, y1, x2, y2 = _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, x1, y1, x2, y2)
+    if not inside:
+        return
+    half = 1 << (_XY_SHIFT - 1)
+    dx, dy = x2 - x1, y2 - y1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            x1, y1, x2, y2, dy = x2, y2, x1, y1, -dy
+        step = _cdiv(dy << _XY_SHIFT, abs(dx) | 1)
+        k = np.arange(((x2 - x1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs, ys = ((x1 + half) >> _XY_SHIFT) + k, (y1 + half + k * step) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            x1, y1, x2, y2, dx = x2, y2, x1, y1, -dx
+        step = _cdiv(dx << _XY_SHIFT, abs(dy) | 1)
+        k = np.arange(((y2 - y1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs, ys = (x1 + half + k * step) >> _XY_SHIFT, ((y1 + half) >> _XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> _XY_SHIFT)
+    ys = np.append(ys, (y2 + half) >> _XY_SHIFT)
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[ok], xs[ok]] = color
+
+
+def fill_convex_poly(img: np.ndarray, points: np.ndarray, color, shift: int = 0) -> np.ndarray:
+    """``cv2.fillConvexPoly(img, points, color, cv2.LINE_8, shift)`` for
+    integer vertices with ``shift`` fractional bits, in place (and
+    returned): the edges drawn as lines (``cv2.line``'s walk, or at a
+    non-zero shift the fixed-point walk ``_line_fixed``), then each row
+    filled between a left and a right chain walked down from the topmost
+    vertex, each chain's x in 16.16 fixed point with a rounded slope, both
+    ends rounded half up."""
     v = np.asarray(points).reshape(-1, 2).astype(np.int64).tolist()
     n = len(v)
     h, w = img.shape[:2]
     color = np.asarray(color, img.dtype)
     if n == 0:
         return img
+    up = _XY_SHIFT - shift
     xa, ya = v[-1]
     for xb, yb in v:
-        _draw_line(img, xa, ya, xb, yb, color)
+        if shift:
+            _line_fixed(img, xa << up, ya << up, xb << up, yb << up, color)
+        else:
+            _draw_line(img, xa, ya, xb, yb, color)
         xa, ya = xb, yb
+    delta = (1 << shift) >> 1
     xs = [q[0] for q in v]
     ys = [q[1] for q in v]
     imin = min(range(n), key=lambda i: (ys[i], i))
-    ymin, ymax = ys[imin], min(max(ys), h - 1)
-    if n < 3 or max(xs) < 0 or max(ys) < 0 or min(xs) >= w or ymin >= h:
+    ymin, ymax = (ys[imin] + delta) >> shift, (max(ys) + delta) >> shift
+    if (n < 3 or (max(xs) + delta) >> shift < 0 or ymax < 0
+            or (min(xs) + delta) >> shift >= w or ymin >= h):
         return img
+    ymax = min(ymax, h - 1)
     one, half = 1 << _XY_SHIFT, 1 << (_XY_SHIFT - 1)
     # per chain: [vertex index, step, x, dx, the row where the edge ends]
     chains = [[imin, 1, -one, 0, ymin], [imin, n - 1, -one, 0, ymin]]
@@ -567,9 +609,9 @@ def fill_convex_poly(img: np.ndarray, points: np.ndarray, color) -> np.ndarray:
             i1 = (i0 + step) % n
             while budget > 0:
                 budget -= 1
-                ty = v[i1][1]
+                ty = (v[i1][1] + delta) >> shift
                 if ty > y:
-                    x0, x1 = v[i0][0] << _XY_SHIFT, v[i1][0] << _XY_SHIFT
+                    x0, x1 = v[i0][0] << up, v[i1][0] << up
                     c[:] = [i1, step, x0, _cdiv((x1 - x0) * 2 + (ty - y), 2 * (ty - y)), ty]
                     break
                 i0, i1 = i1, (i1 + step) % n
@@ -588,6 +630,46 @@ def fill_convex_poly(img: np.ndarray, points: np.ndarray, color) -> np.ndarray:
         if y > ymax:
             break
     return img
+
+
+# OpenCV's sine table for whole degrees 0..450, sin rounded to 7 decimals,
+# as float32 (drawing.cpp ``SinTable``; cos(a) is entry 450 - a)
+_SIN_TABLE = [float(np.float32(round(math.sin(math.radians(a)), 7))) for a in range(451)]
+
+
+def ellipse(img: np.ndarray, center: Sequence[int], axes: Sequence[int], angle: float,
+            color) -> np.ndarray:
+    """``cv2.ellipse(img, center, axes, angle, 0, 360, color, -1)`` (filled,
+    LINE_8), in place (and returned). As OpenCV draws it: the angle rounded
+    to whole degrees; the outline sampled every 5, 18, 30 or 90 degrees (by
+    the larger semi-axis: ≥ 15, ≥ 10, ≥ 3, smaller) from the sine table, in
+    doubles on the 16.16 fixed-point centre and axes; each point rounded to
+    an integer in 16.16 and repeats dropped; then ``fill_convex_poly`` of the
+    points with shift 16."""
+    cx, cy = (int(c) << _XY_SHIFT for c in center)
+    ax, ay = (abs(int(a)) << _XY_SHIFT for a in axes)
+    rot = int(round(float(angle)))
+    while rot < 0:
+        rot += 360
+    while rot > 360:
+        rot -= 360
+    big = (max(ax, ay) + (1 << (_XY_SHIFT - 1))) >> _XY_SHIFT
+    step = 90 if big < 3 else 30 if big < 10 else 18 if big < 15 else 5
+    alpha, beta = _SIN_TABLE[450 - rot], _SIN_TABLE[rot]
+    pts: list = []
+    for i in range(0, 360 + step, step):
+        a = min(i, 360)
+        x, y = ax * _SIN_TABLE[450 - a], ay * _SIN_TABLE[a]
+        px, py = cx + x * alpha - y * beta, cy + x * beta + y * alpha
+        q = []
+        for c in (px, py):
+            r = int(round(c / (1 << _XY_SHIFT))) << _XY_SHIFT
+            q.append(r + int(round(c - r)))
+        if not pts or pts[-1] != q:
+            pts.append(q)
+    if len(pts) == 1:
+        pts = [[cx, cy], [cx, cy]]
+    return fill_convex_poly(img, np.asarray(pts, np.int64), color, shift=_XY_SHIFT)
 
 
 def arc_length(contour: np.ndarray, closed: bool = True) -> float:

@@ -1,6 +1,7 @@
 """String-keyed registries for config-driven construction (port of
 nuhtc_tpu/registry.py: ``Registry`` and the registries the port uses,
-``DETECTORS``, ``HEADS``, ``DATASETS``, ``LOSSES`` and ``PIPELINES``).
+``BACKBONES``, ``NECKS``, ``DETECTORS``, ``HEADS``, ``DATASETS``, ``LOSSES``
+and ``PIPELINES``).
 
 The reference framework wires every component through mmdet registries
 (`@DETECTORS.register_module()` etc.; see reference
@@ -42,9 +43,12 @@ class Registry:
         return key in self._registry
 
 
+# the backbones and necks (SwinTransformer, ViT, SwinUnet; FPN, ViT_FPN),
 # detectors (other than the HTC schema, which models/build.py maps itself),
 # the extra heads, datasets, losses and the train pipeline's transforms go
 # by name
+BACKBONES = Registry("backbones")
+NECKS = Registry("necks")
 DETECTORS = Registry("detectors")
 HEADS = Registry("heads")
 DATASETS = Registry("datasets")

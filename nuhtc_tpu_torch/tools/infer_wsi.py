@@ -13,6 +13,10 @@ Stage B runs on the first CUDA device and raises without one; ``--device cpu``
 asks for the CPU. On a GPU the engine runs in WSI mode (tiles preprocessed on
 the device, one compact label map per tile), on the CPU in the strict
 contract (host preprocess, one full-frame mask per detection).
+
+Stage A hands the patch grid to stage B through ``patches/<slide>.h5``
+(h5py). From Python, ``main(argv, coords={})`` keeps it in that dict by
+slide instead and writes no .h5: for a host without h5py.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Optional, Sequence
 from nuhtc_tpu_torch.utils.tables import read_csv_rows, write_csv_rows
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def main(argv: Optional[Sequence[str]] = None, coords: Optional[dict] = None) -> int:
+    """``coords`` (from Python only): a dict that holds stage A's patch grid
+    by slide in place of the .h5 files."""
     ap = argparse.ArgumentParser(prog="python -m nuhtc_tpu_torch.tools.infer_wsi")
     ap.add_argument("source")
     ap.add_argument("config")
@@ -131,7 +137,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         slide_id = os.path.splitext(slide_name)[0]
         h5_path = os.path.join(args.save_dir, "patches", slide_id + ".h5")
         row = dict(slide_id=slide_name, status="processed")
-        if not args.no_auto_skip and os.path.exists(h5_path):
+        done = slide_id in coords if coords is not None else os.path.exists(h5_path)
+        if not args.no_auto_skip and done:
             row["status"] = "already_exist"
             status_rows.append(row)
             continue
@@ -145,26 +152,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             vis = vis_tissue_mask(slide, seg)
             write_png(os.path.join(args.save_dir, "masks", slide_id + ".png"), vis)
         t0 = time.time()
-        coords = grid_coords(slide, seg, args.patch_size, args.step_size,
-                             patch_level=args.patch_level, **base_patch)
+        grid = grid_coords(slide, seg, args.patch_size, args.step_size,
+                           patch_level=args.patch_level, **base_patch)
         patch_t = time.time() - t0
-        if args.patch:
+        if args.patch and coords is not None:
+            coords[slide_id] = grid
+        elif args.patch:
             save_coords_h5(
-                h5_path, coords,
+                h5_path, grid,
                 attrs=dict(patch_size=args.patch_size, step_size=args.step_size,
                            patch_level=args.patch_level, name=slide_id),
             )
         stitch_t = 0.0
-        if args.stitch and len(coords):
+        if args.stitch and len(grid):
             t0 = time.time()
-            mosaic = stitch_coords(slide, coords, args.patch_size)
+            mosaic = stitch_coords(slide, grid, args.patch_size)
             write_jpg(os.path.join(args.save_dir, "stitches", slide_id + ".jpg"), mosaic)
             stitch_t = time.time() - t0
         print(
-            f"{slide_id}: {len(coords)} patches "
+            f"{slide_id}: {len(grid)} patches "
             f"(seg {seg_t:.1f}s, patch {patch_t:.1f}s, stitch {stitch_t:.1f}s)"
         )
-        row.update(n_patches=len(coords), seg_time=seg_t, patch_time=patch_t)
+        row.update(n_patches=len(grid), seg_time=seg_t, patch_time=patch_t)
         status_rows.append(row)
     status_csv = "process_list_autogen.csv" if not args.shard else (
         f"process_list_autogen_shard{args.shard.replace('/', '_')}.csv"
@@ -184,17 +193,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for slide_name in slides:
         slide_id = os.path.splitext(slide_name)[0]
         h5_path = os.path.join(args.save_dir, "patches", slide_id + ".h5")
-        if not os.path.exists(h5_path):
+        if not (slide_id in coords if coords is not None else os.path.exists(h5_path)):
             print(f"skip {slide_id}: no coord file")
             continue
         nuclei_dir = os.path.join(args.save_dir, "nuclei", slide_id)
         if os.path.exists(os.path.join(nuclei_dir, f"{slide_id}_merged.geojson")):
             print(f"skip {slide_id}: existing results")
             continue
-        coords, _ = load_coords_h5(h5_path)
+        grid = coords[slide_id] if coords is not None else load_coords_h5(h5_path)[0]
         slide = open_slide(os.path.join(args.source, slide_name))
         stats = infer_slide(
-            engine, slide, coords, nuclei_dir, slide_id, classes,
+            engine, slide, grid, nuclei_dir, slide_id, classes,
             patch_size=args.patch_size, patch_level=args.patch_level,
             mode=args.mode, margin=args.margin, min_area=args.min_area,
             score_thr=args.score_thr,

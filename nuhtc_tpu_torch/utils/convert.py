@@ -18,6 +18,11 @@ The full cascade's per-stage heads ``mask_heads_{i}`` map onto
 the ``_Lite_Fuse`` seg branch ``seg_branch`` onto ``roi_head.seg_branch.*``
 under its flax module names (convolutions as convolutions, ``fc_cls`` as a
 linear layer).
+
+The standalone backbones and neck of nuhtc_tpu/models/backbones.py and
+extra_heads.py (``family`` "vit", "swin_unet", "vit_fpn") map onto their
+port modules' keys: the ViT onto the reference visiontransformer.py names,
+SwinUnet's Swin blocks onto the mmdet sub-names ``SwinTransformer`` uses.
 """
 
 from __future__ import annotations
@@ -59,10 +64,87 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
+def _leaf(path: Tuple[str, ...]) -> str:
+    return {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
+
+
+def _swin_block_key(base: str, rest: Tuple[str, ...]):
+    """A Swin block's flax sub-path (``norm1``, ``attn/qkv``, ``ffn/fc1`` ...)
+    → (its mmdet key under ``base``, inverse transform)."""
+    leaf, kernel = _leaf(rest), rest[-1] == "kernel"
+    sub = rest[0]
+    if sub in ("norm1", "norm2"):
+        return f"{base}.{sub}.{leaf}", _ident
+    if sub == "attn":
+        if rest[1] == "relative_position_bias_table":
+            return f"{base}.attn.w_msa.relative_position_bias_table", _ident
+        return f"{base}.attn.w_msa.{rest[1]}.{leaf}", _lin if kernel else _ident
+    if sub == "ffn":
+        layer = "layers.0.0" if rest[1] == "fc1" else "layers.1"
+        return f"{base}.ffn.{layer}.{leaf}", _lin if kernel else _ident
+    return None
+
+
+def vit_key(path: Tuple[str, ...]):
+    """A standalone JAX ``ViT`` tree's path → (the reference's
+    visiontransformer.py key, inverse transform), or None."""
+    leaf, kernel = _leaf(path), path[-1] == "kernel"
+    if path[0] == "patch_embed":
+        return f"patch_embed.proj.{leaf}", _conv if kernel else _ident
+    if path == ("pos_embed",):
+        return "pos_embed", _ident
+    m = re.fullmatch(r"block(\d+)", path[0])
+    if m is None or len(path) < 3:
+        return None
+    base = f"blocks.{m.group(1)}"
+    if path[1] in ("norm1", "norm2"):
+        return f"{base}.{path[1]}.{leaf}", _ident
+    if path[1] == "attn" and path[2] in ("rel_pos_h", "rel_pos_w"):
+        return f"{base}.attn.{path[2]}", _ident
+    if path[1] in ("attn", "mlp"):
+        return f"{base}.{path[1]}.{path[2]}.{leaf}", _lin if kernel else _ident
+    return None
+
+
+def swin_unet_key(path: Tuple[str, ...]):
+    """A standalone JAX ``SwinUnet`` tree's path → (the port's key, inverse
+    transform), or None."""
+    leaf, kernel = _leaf(path), path[-1] == "kernel"
+    mod = path[0]
+    if mod == "patch_embed":
+        return f"patch_embed.projection.{leaf}", _conv if kernel else _ident
+    if mod == "patch_norm":
+        return f"patch_embed.norm.{leaf}", _ident
+    m = re.fullmatch(r"enc(\d+)_block(\d+)", mod)
+    if m:
+        return _swin_block_key(f"enc.{m.group(1)}.blocks.{m.group(2)}", path[1:])
+    m = re.fullmatch(r"down(\d+)", mod)
+    if m:
+        if path[1] == "norm":
+            return f"enc.{m.group(1)}.downsample.norm.{leaf}", _ident
+        return f"enc.{m.group(1)}.downsample.reduction.weight", _lin
+    m = re.fullmatch(r"up(\d+)_expand", mod)
+    if m:
+        return f"dec.{m.group(1)}.expand.{leaf}", _lin if kernel else _ident
+    m = re.fullmatch(r"dec(\d+)_block", mod)
+    if m:
+        return _swin_block_key(f"dec.{m.group(1)}.block", path[1:])
+    return None
+
+
+def vit_fpn_key(path: Tuple[str, ...]):
+    """A standalone JAX ``ViT_FPN`` tree's path → (the port's key, inverse
+    transform), or None. ``up4``/``up2`` are flax ConvTransposes (flipped)."""
+    if path[0] not in ("up4", "up2", "same", "down") or len(path) != 2:
+        return None
+    transform = _deconv if path[0].startswith("up") else _conv
+    return f"{path[0]}.{_leaf(path)}", transform if path[-1] == "kernel" else _ident
+
+
 def torch_key(path: Tuple[str, ...]):
     """flax path → (mmdet key, inverse transform), or None if unknown."""
     top, rest = path[0], path[1:]
-    leaf = {"kernel": "weight", "scale": "weight"}.get(rest[-1], rest[-1])
+    leaf = _leaf(rest)
 
     def wfn(transform):  # the layout transform applies to kernels only
         return transform if rest[-1] == "kernel" else _ident
@@ -75,17 +157,7 @@ def torch_key(path: Tuple[str, ...]):
             return f"backbone.patch_embed.norm.{leaf}", _ident
         m = re.fullmatch(r"stage(\d+)_block(\d+)", mod)
         if m:
-            base = f"backbone.stages.{m.group(1)}.blocks.{m.group(2)}"
-            sub = rest[1]
-            if sub in ("norm1", "norm2"):
-                return f"{base}.{sub}.{leaf}", _ident
-            if sub == "attn":
-                if rest[2] == "relative_position_bias_table":
-                    return f"{base}.attn.w_msa.relative_position_bias_table", _ident
-                return f"{base}.attn.w_msa.{rest[2]}.{leaf}", wfn(_lin)
-            if sub == "ffn":
-                layer = "layers.0.0" if rest[2] == "fc1" else "layers.1"
-                return f"{base}.ffn.{layer}.{leaf}", wfn(_lin)
+            return _swin_block_key(f"backbone.stages.{m.group(1)}.blocks.{m.group(2)}", rest[1:])
         m = re.fullmatch(r"downsample(\d+)", mod)
         if m:
             base = f"backbone.stages.{m.group(1)}.downsample"
@@ -138,13 +210,26 @@ def torch_key(path: Tuple[str, ...]):
     return None
 
 
-def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+FAMILIES = {"detector": torch_key, "vit": vit_key, "swin_unet": swin_unet_key,
+            "vit_fpn": vit_fpn_key}
+
+
+def state_dict_from_jax(params: Dict[str, Any], family: str = "detector"
+                        ) -> Dict[str, torch.Tensor]:
     """flax param tree (``{"params": ...}`` or the inner dict) of numpy
-    arrays → the port's state dict (f32 tensors, mmdet key names)."""
+    arrays → the port's state dict (f32 tensors, mmdet key names).
+    ``family`` "detector" takes a detector's tree (``backbone``, ``neck``,
+    the heads); "vit", "swin_unet" and "vit_fpn" take the standalone tree
+    of that module (no top level) and give the module's own keys. A leaf
+    with no port key raises."""
+    if family not in FAMILIES:
+        raise ValueError(f"state_dict_from_jax: family {family!r} is not one of "
+                         f"{sorted(FAMILIES)}")
+    key_fn = FAMILIES[family]
     tree = params.get("params", params)
     out = {}
     for path, value in _flatten(tree):
-        mapped = torch_key(path)
+        mapped = key_fn(path)
         if mapped is None:
             raise KeyError(f"state_dict_from_jax: no port key for {'/'.join(path)}")
         key, fn = mapped
