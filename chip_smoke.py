@@ -128,6 +128,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      map's gradient scale, bf16 within 2⁻⁷ of the f32 plain gradients'
      scale), bit-equal over three calls in each type, and K4's forward and
      backward time a step against the bound and the plain version;
+ 12a. data parallelism (``phase_parallel``) on phase 10's release:
+     (a) ``tools.train --launcher pytorch --deterministic`` as one NCCL
+     rank against ``--launcher none``, 2 steps: every weight and EMA tensor
+     bit-equal, 4 K4, 4 K4-backward, ≥ 1 K3 and no Swin kernel a step, the
+     gradients' all-reduce 4 bytes a parameter a step; (b) ``tools.test
+     --launcher pytorch`` as one NCCL rank on 16 tiles: the metrics equal
+     to ``--launcher none``'s; (c) two gloo ranks on the card at B4 against
+     one process at B8 on the same weights, batch and seed: the losses,
+     gradient norm, weights and EMA within the bounds derived beside
+     PAR_CONT_RTOL, the ranks bit-equal; (d) ``shard_state`` (FSDP2) on a
+     1 × 1 mesh: 2 steps, the first's losses against (a)'s, then every Swin
+     block through K1 against the plain tier on the gathered weights and
+     its K1 pack equal to them in bf16; s/step of each;
  12b. the configs whose train pipelines crop (``phase_train_configs``):
      ``tools.train.main`` for 2 steps without evaluation on the CoNIC config
      (``RandomCrop``) over phase 10's release and on the NuCLS config
@@ -190,11 +203,12 @@ time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
 by path: wsi, strict, slide, embed, eval, patch, robustness, train,
-train_configs, cus_serve, cus_train, fuse_serve, fuse_train, backbones,
-extractors, golden, semi_serve, semi_train; K4's
-backward is an entry of its own), error, times and bound (the least time the card could take: the larger of the bytes
-moved once over 3.35 TB/s and the operations over the peak rate for their
-type); the last line is {"ok": true, "device": {...}}.
+train_configs, parallel_train, parallel_test, parallel_2rank, parallel_2d,
+cus_serve, cus_train, fuse_serve, fuse_train, backbones, extractors,
+golden, semi_serve, semi_train; K4's backward is an entry of its own),
+error, times and bound (the least time the card could take: the larger of
+the bytes moved once over 3.35 TB/s and the operations over the peak rate
+for their type); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1880,6 +1894,368 @@ def phase_train_configs(device, tmp, ctx):
     return counts
 
 
+PAR_STEPS = 2  # steps of each tools.train run of phase_parallel
+PAR_TILES = 16  # tiles of each tools.test run of phase_parallel
+PAR_LR = 1e-3  # (d)'s constant lr: step 2's weights differ from step 1's in bf16, as K1 reads them
+# (c) two ranks at B4 against one process at B8 on the same weights, batch and
+# seed, bf16 autocast: bounds derived before the first run (PERF.md §6).
+# Every product rounds to bf16 (u = 2^-8) at a different M, so a value moves by
+# ~u where the two roundings differ. The RPN losses and the semantic Dice read
+# the logits through no discrete step (the RPN's samples come from the anchors,
+# the gts and the shared draws): 2.5 u relative. The cascade's proposals pass
+# through NMS, top-k and K3's thresholded components, where a flipped tie
+# swaps a proposal and so a sample: each swapped sample moves a stage loss by
+# (l_i - l_j) / N; ≤ 5 % of ~1,000 positives a stage swapped keeps a loss
+# within 0.1 relative, and the gradient norm with it. AdamW's first step moves
+# an element by lr·g/(|g| + eps) + lr·wd·p, at most lr (1e-7 at the warm-up's
+# first step) in either run: the two runs' weights and EMA differ by at most
+# 2 lr plus an f32 rounding of each.
+PAR_CONT_KEYS = ("loss_rpn_cls", "loss_rpn_bbox", "loss_semantic_seg")
+PAR_CONT_RTOL = 2.5 * 2 ** -8
+PAR_LOSS_RTOL = 0.1
+PAR_PARAM_ATOL = 2 * 1e-7
+
+
+def _torchrun_env(port: int):
+    """torchrun's variables for a group of one on this host, set while the
+    returned context lasts."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def env():
+        keys = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port))
+        old = {k: os.environ.get(k) for k in keys}
+        os.environ.update(keys)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return env()
+
+
+def _par_step(device, tx_schedule=None, shard=None):
+    """The PanNuke config's detector with tools.train's seed-0 weights on
+    ``device`` (``shard``: a mesh for ``shard_state``), its train state and
+    ``make_train_step`` under bf16 autocast."""
+    import torch
+
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
+    from nuhtc_tpu_torch.parallel.shard_rules import shard_state
+    from nuhtc_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg = Config.fromfile(CONFIG)
+    model = build_detector(cfg.model, cfg.model.get("test_cfg"),
+                           float(cfg.get("scale_factor", 2.0)))
+    init_random_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    if shard is not None:
+        shard_state(model, shard)
+    state, tx = create_train_state(model, num_stages=3, num_classes=5, schedule=tx_schedule)
+    return model, state, make_train_step(model, tx, compute_dtype=torch.bfloat16)
+
+
+def _timed_steps(device, model, state, step, batch, record):
+    """Step 0 on ``batch`` (recorded: metrics, weights, EMA, on the host),
+    then step 1, timed; → (record, seconds of step 1, launches)."""
+    import torch
+
+    reset_counts()
+    for i in range(2):
+        gen = torch.Generator(device=device).manual_seed(1_000_003 + state.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i == 0:
+            record.update(metrics={k: float(v) for k, v in metrics.items()},
+                          params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                          ema={n: e.cpu() for n, e in state.ema_params.items()})
+    return record, dt, read_counts()
+
+
+def _parallel_rank(rank, world, batch_path, out):
+    """A rank of phase_parallel (c): this rank's rows of the B8 batch, one
+    recorded step and one timed step."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    host = np.load(batch_path)
+    b = len(host["img"]) // world
+    batch = {k: torch.from_numpy(host[k][rank * b:(rank + 1) * b]).to(device) for k in host}
+    model, state, step = _par_step(device)
+    record, dt, counts = _timed_steps(device, model, state, step, batch, {})
+    torch.save(dict(record, seconds=dt, counts=counts), os.path.join(out, f"rank{rank}.pt"))
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _check_par_losses(label, got, want):
+    """(c)'s bounds on each loss and the gradient norm; returns the largest
+    relative difference of each kind."""
+    worst = {"continuous": 0.0, "cascade": 0.0, "grad_norm": 0.0}
+    for k, w in want.items():
+        kind = ("grad_norm" if k == "grad_norm" else
+                "continuous" if k in PAR_CONT_KEYS else "cascade")
+        tol = PAR_CONT_RTOL if kind == "continuous" else PAR_LOSS_RTOL
+        r = _rel(got[k], w)
+        if not np.isfinite(got[k]) or r > tol:
+            raise AssertionError(f"{label}: {k} {got[k]} against {w} (relative {r:.4g} > {tol})")
+        worst[kind] = max(worst[kind], r)
+    return worst
+
+
+def phase_parallel(device, tmp, ctx):
+    """Data-parallel training and evaluation (``nuhtc_tpu_torch.parallel``)
+    on phase_eval's release at full width (the PanNuke config: Swin-T, FPN
+    64, B8 of 512², bf16 autocast). (a) ``tools.train.main(...,
+    "--launcher", "pytorch", "--deterministic", "--no-validate")`` in this
+    process as one NCCL rank (torchrun's variables set here) for PAR_STEPS
+    steps, against the same run with ``--launcher none``: every weight and
+    EMA tensor bit-equal; a step launches K4 4, K4's backward 4 and K3 ≥ 1
+    times and no Swin kernel (training takes the plain blocks, as the JAX
+    step); the gradients' all-reduce moves 4 bytes a parameter a step;
+    s/step of both. (b) ``tools.test --launcher pytorch`` as one NCCL rank
+    on PAR_TILES tiles against ``--launcher none``: the metrics equal; 12
+    K1, 4 K4, ≥ 1 K3 a forward. (c) two ranks on the card, two processes on
+    gloo (NCCL takes one rank a card), at B4 each against one process at B8
+    on the same weights, batch (the loader's first of (a)) and seed,
+    drop-path as shipped: every loss, the gradient norm, the weights and
+    the EMA within the bounds derived beside PAR_CONT_RTOL; both ranks'
+    weights bit-equal; s/step. (d) ``shard_state`` on a 1 × 1 data × model
+    mesh (NCCL, FSDP2): 2 steps at the constant lr PAR_LR, the first's
+    losses against (a)'s first within (c)'s bounds; a forward after each
+    step, and in the second every Swin block through K1 against the plain
+    tier on the gathered weights (K1_TOL) and its K1 pack equal to those
+    weights in bf16. Returns the launches of the four paths."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from nuhtc_tpu_torch.config import Config
+    from nuhtc_tpu_torch.data.coco import build_dataset
+    from nuhtc_tpu_torch.data.loader import PrefetchLoader
+    from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
+    from nuhtc_tpu_torch.ops.window_block import source_key
+    from nuhtc_tpu_torch.parallel import mesh as P
+    from nuhtc_tpu_torch.parallel.launch import free_port, run_ranks
+    from nuhtc_tpu_torch.parallel.shard_rules import make_mesh_2d
+    from nuhtc_tpu_torch.tools import test as test_tool
+    from nuhtc_tpu_torch.tools import train as train_tool
+    from nuhtc_tpu_torch.train.train_state import lr_schedule
+
+    t_phase = time.perf_counter()
+    cfg_path, _ = _train_config(tmp, CONFIG, _release_data(ctx), "parallel_pannuke")
+    paths = {}
+
+    # (a) tools.train as one NCCL rank against --launcher none
+    runs = {}
+    for launcher in ("pytorch", "none"):
+        work = os.path.join(tmp, f"parallel_{launcher}")
+        timing = []
+        reset_counts()
+        P.reset_collectives()
+        with _torchrun_env(free_port()):
+            state = train_tool.main([cfg_path, "--work-dir", work, "--iters-per-epoch",
+                                     str(PAR_STEPS), "--max-epochs", "1", "--no-validate",
+                                     "--deterministic", "--seed", "0", "--launcher", launcher],
+                                    trainer_kw=dict(record_timing=timing))
+        torch.cuda.synchronize()
+        runs[launcher] = dict(state=state, counts=read_counts(), timing=timing,
+                              collectives={k: tuple(v) for k, v in P.COLLECTIVES.items()},
+                              rows=_train_rows(work)[0])
+    torch.use_deterministic_algorithms(False)
+    if P.is_distributed():
+        raise AssertionError("parallel (a): tools.train left its process group")
+    got, want = runs["pytorch"], runs["none"]
+    n_params = sum(p.numel() for p in got["state"].params.values())
+    differ = [k for part in ("params", "ema_params")
+              for k in getattr(want["state"], part)
+              if not torch.equal(getattr(got["state"], part)[k], getattr(want["state"], part)[k])]
+    c = got["counts"]
+    grads = got["collectives"].get("grads", (0, 0))
+    if (differ or got["state"].step != PAR_STEPS or c["window_block"] or c["window_attention"]
+            or c["roi_align"] != 4 * PAR_STEPS or c["roi_align_backward"] != 4 * PAR_STEPS
+            or c["component_stats"] < PAR_STEPS or grads != (PAR_STEPS, PAR_STEPS * 4 * n_params)
+            or want["collectives"]):
+        raise AssertionError(f"parallel (a): differ {differ[:8]}, steps {got['state'].step}, "
+                             f"launches {c}, collectives {got['collectives']} / "
+                             f"{want['collectives']}, {n_params} parameters")
+    paths["parallel_train"] = c
+    s_step = {k: [sum(t.values()) for t in r["timing"]] for k, r in runs.items()}
+    log(f"parallel (a) tools.train --launcher pytorch (one NCCL rank) against --launcher none, "
+        f"{PAR_STEPS} steps at B{TRAIN_BATCH}, --deterministic: "
+        f"{2 * len(want['state'].params)} weight and EMA tensors bit-equal; s/step "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v) for k, v in s_step.items())
+        + f" (the first builds the cuDNN plans); the step's split (pytorch, last): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in runs["pytorch"]["timing"][-1].items())
+        + f"; collectives (calls, bytes): {got['collectives']} = {n_params} parameters × 4 "
+        f"bytes a step for the gradients; launches {c}")
+
+    # (b) tools.test as one NCCL rank against --launcher none
+    metrics, summaries = {}, {}
+    for launcher in ("pytorch", "none"):
+        work = os.path.join(tmp, f"parallel_test_{launcher}")
+        reset_counts()
+        with _torchrun_env(free_port()):
+            text = _captured(test_tool.main, [
+                CONFIG, ctx["ckpt"], "--batch-size", str(BATCH), "--limit", str(PAR_TILES),
+                "--work-dir", work, "--launcher", launcher, "--cfg-options", *ctx["data"]])
+        torch.cuda.synchronize()
+        if launcher == "pytorch":
+            paths["parallel_test"] = read_counts()
+            check_counts("parallel (b)", paths["parallel_test"], -(-PAR_TILES // BATCH),
+                         "window_block")
+        summaries[launcher] = json.loads(
+            [ln for ln in text.splitlines() if ln.startswith("test: ")][-1][6:])
+        with open(os.path.join(work, "eval_metrics.json")) as f:
+            metrics[launcher] = json.load(f)
+    if metrics["pytorch"] != metrics["none"]:
+        raise AssertionError(f"parallel (b): metrics {metrics}")
+    log(f"parallel (b) tools.test --launcher pytorch (one NCCL rank) against --launcher none "
+        f"on {PAR_TILES} tiles at B{BATCH}: the {len(metrics['none'])} metrics equal (pq "
+        f"{metrics['none']['pq']:.4f}, aji {metrics['none']['aji']:.4f}); img/s "
+        + ", ".join(f"{k} {v['img_per_s']:.2f}" for k, v in summaries.items())
+        + f"; launches {paths['parallel_test']}")
+
+    # (c) two gloo ranks on the card at B4 against one process at B8
+    cfg = Config.fromfile(cfg_path)
+    loader = PrefetchLoader(build_dataset(cfg.data.train),
+                            build_train_pipeline(cfg.get("train_pipeline", [])),
+                            batch_size=TRAIN_BATCH, seed=0)
+    host = loader.make_batch(0)
+    loader.close()
+    batch_path = os.path.join(tmp, "parallel_batch.npz")
+    np.savez(batch_path, **host)
+    out = os.path.join(tmp, "parallel_ranks")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    run_ranks(_parallel_rank, 2, args=(batch_path, out), backend="gloo", device="cuda:0",
+              threads=4, timeout=600)
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    model, state, step = _par_step(device)
+    single, dt_single, _ = _timed_steps(device, model, state, step, batch, {})
+    del model, state, step
+    worst = _check_par_losses("parallel (c)", ranks[0]["metrics"], single["metrics"])
+    d_param = 0.0
+    for part in ("params", "ema"):
+        for k, w in single[part].items():
+            g = ranks[0][part][k]
+            tol = PAR_PARAM_ATOL + 2 * torch.finfo(torch.float32).eps * w.abs()
+            d = (g - w).abs()
+            if not bool((d <= tol).all()):
+                raise AssertionError(f"parallel (c): {part} {k} differs by {float(d.max())}")
+            d_param = max(d_param, float(d.max()))
+    same = [k for part in ("params", "ema") for k in single[part]
+            if torch.equal(ranks[0][part][k], single[part][k])]
+    rank_differ = [k for part in ("params", "ema") for k in ranks[0][part]
+                   if not torch.equal(ranks[0][part][k], ranks[1][part][k])]
+    if rank_differ or ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"parallel (c): the ranks differ: {rank_differ[:8]}")
+    paths["parallel_2rank"] = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k]
+                               for k in ranks[0]["counts"]}
+    n_tensors = 2 * len(single["params"])
+    log(f"parallel (c) two gloo ranks on the card at B{TRAIN_BATCH // 2} against one process "
+        f"at B{TRAIN_BATCH} (same weights, batch, seed; drop-path as shipped): relative "
+        f"difference, largest: RPN and semantic losses {worst['continuous']:.3g} (bound "
+        f"{PAR_CONT_RTOL:.3g}), cascade losses {worst['cascade']:.3g}, grad_norm "
+        f"{worst['grad_norm']:.3g} (bound {PAR_LOSS_RTOL}); weights and EMA: {len(same)} of "
+        f"{n_tensors} tensors bit-equal, largest difference {d_param:.3g} (bound "
+        f"{PAR_PARAM_ATOL:.3g} + 2 ulp); the ranks bit-equal; total "
+        f"{ranks[0]['metrics']['total']:.6f} against {single['metrics']['total']:.6f}, "
+        f"grad_norm {ranks[0]['metrics']['grad_norm']:.6f} against "
+        f"{single['metrics']['grad_norm']:.6f}; s/step (the second step) ranks "
+        f"{ranks[0]['seconds']:.3f}, {ranks[1]['seconds']:.3f}, one process {dt_single:.3f}; "
+        f"the two rank processes {t_ranks:.1f} s start to end; launches "
+        f"{paths['parallel_2rank']}")
+
+    # (d) shard_state on a 1 x 1 mesh: 2 steps, K1 on the gathered weights
+    errs, stale, keys = [], [], []
+    guard = {"busy": False}
+
+    def last_block_key(m, args):
+        if not guard["busy"] and not m.training:
+            keys.append(source_key([m.attn.w_msa.qkv.weight])[1:])
+
+    def k1_against_plain(m, args, out):
+        if guard["busy"]:
+            return
+        guard["busy"] = True
+        try:
+            m.kernel = "none"
+            want_ = m(args[0])
+        finally:
+            m.kernel, guard["busy"] = "block", False
+        scale = want_.float().abs().max().item()
+        errs.append((out.float() - want_.float()).abs().max().item() / max(1.0, scale))
+        pack, msa = m._params, m.attn.w_msa
+        stale.append(any(not torch.equal(getattr(pack, name), t.detach().to(torch.bfloat16))
+                         for name, t in (("wqkv", msa.qkv.weight), ("wproj", msa.proj.weight),
+                                         ("wfc1", m.ffn.fc1.weight),
+                                         ("wfc2", m.ffn.fc2.weight))))
+
+    with _torchrun_env(free_port()):
+        P.init_distributed(device=device)
+        try:
+            mesh = make_mesh_2d(1, 1)
+            schedule = lr_schedule(base_lr=PAR_LR, warmup_iters=1, warmup_ratio=1.0)
+            model, state, step = _par_step(device, schedule, shard=mesh)
+            blocks = [blk for stage in model.backbone.stages for blk in stage.blocks]
+            blocks[-1].register_forward_pre_hook(last_block_key)
+            reset_counts()
+            firsts, forward_errs = [], []
+            for i in range(2):
+                gen = torch.Generator(device=device).manual_seed(1_000_003 + state.step)
+                state, m_ = step(state, batch, gen)
+                firsts.append({k: float(v) for k, v in m_.items()})
+                hooks = ([blk.register_forward_hook(k1_against_plain) for blk in blocks]
+                         if i == 1 else [])
+                with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                    det = model.eval()(batch["img"])
+                model.reshard()
+                model.train()
+                for h in hooks:
+                    h.remove()
+                check_detections(det["boxes"].float().cpu().numpy(),
+                                 det["scores"].float().cpu().numpy())
+            torch.cuda.synchronize()
+            paths["parallel_2d"] = read_counts()
+            sharded = sum(1 for p in model.parameters() if isinstance(p, DTensor))
+        finally:
+            P.destroy_distributed()
+    del model, state, step
+    worst_d = _check_par_losses("parallel (d)", firsts[0],
+                                {k: v for k, v in want["rows"][0].items()
+                                 if k in firsts[0]})
+    c = paths["parallel_2d"]
+    if (len(errs) != 12 or max(errs) > K1_TOL or any(stale) or len(keys) != 2
+            or c["window_block"] != 24
+            or c["roi_align"] != 4 * 4 or c["roi_align_backward"] != 4 * 2):
+        raise AssertionError(f"parallel (d): K1 errors {errs}, stale packs {stale}, "
+                             f"launches {c}")
+    log(f"parallel (d) shard_state on a 1x1 data x model mesh (NCCL, FSDP2: {sharded} DTensor "
+        f"parameters), 2 steps at lr {PAR_LR}: step 1 against (a)'s first step, largest "
+        f"relative difference: RPN and semantic {worst_d['continuous']:.3g}, cascade "
+        f"{worst_d['cascade']:.3g}, grad_norm {worst_d['grad_norm']:.3g}; after step 2 the "
+        f"12 Swin blocks through K1 against the plain tier on the gathered weights: max err "
+        f"{max(errs):.4f} of max(1, scale) (allowed {K1_TOL}), every K1 pack equal to the "
+        f"gathered weights in bf16; the last block's qkv weight as gathered for the two "
+        f"forwards: address and version counter {'the same' if keys[0] == keys[-1] else 'changed'} "
+        f"({keys[0][0][:2]} then {keys[-1][0][:2]}); launches {c}")
+    log(f"parallel: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 CUS_ROI = "HybridTaskCascadeRoIHead_Cus"
 FUSE_ROI = "HybridTaskCascadeRoIHead_Lite_Fuse"
 VARIANT_STEPS = 2  # steps of each training run of phase_variants
@@ -2909,6 +3285,7 @@ def main() -> int:
         evaluation, patch, context = phase_eval(device, tmp)
         robustness = phase_robustness(device, tmp, context)
         train, k4_backward = phase_train(device, tmp, context)
+        parallel = phase_parallel(device, tmp, context)
         train_configs = phase_train_configs(device, tmp, context)
         variants, _ = phase_variants(device, tmp, context)
         backbones = phase_backbones(device, tmp, context)
@@ -2916,7 +3293,8 @@ def main() -> int:
         semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
                  robustness=robustness, train=train, train_configs=train_configs,
-                 **variants, **backbones, semi_serve=semi_serve, semi_train=semi_train)
+                 **parallel, **variants, **backbones, semi_serve=semi_serve,
+                 semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4

@@ -32,13 +32,20 @@ def set_random_seed(seed: int, deterministic: bool = False) -> int:
 
 def train_detector(model, dataset, cfg, work_dir: str, test_dataset=None,
                    resume_from: Optional[str] = None, seed: int = 0,
-                   compute_dtype: Optional[torch.dtype] = None, **trainer_kw):
+                   compute_dtype: Optional[torch.dtype] = None, rank: int = 0,
+                   world_size: int = 1, **trainer_kw):
     """The loader and ``Trainer`` as tools/train.py builds them:
     ``samples_per_gpu`` from the config (or ``data.samples_per_gpu``),
     iterations per epoch from the dataset's size; a ``SemiDataset`` takes the
     ``SemiPrefetchLoader`` with ``sup_ratio`` and ``unsup_strong_pipeline``.
     ``model``: the detector on its device, f32; ``compute_dtype``: bf16 on
     the card. Returns the final train state.
+
+    ``rank`` of ``world_size`` (a process group from
+    ``parallel.mesh.init_distributed``): ``samples_per_gpu`` is the local
+    batch, the loader's seed ``seed + rank · 100003`` (a sampling stream of
+    its own per rank, as the JAX tools/train.py:95), and only rank 0
+    writes.
 
     As in the JAX package, a config without ``train_pipeline`` (the semi
     template) gets an empty pipeline: its supervised images reach the model
@@ -47,6 +54,9 @@ def train_detector(model, dataset, cfg, work_dir: str, test_dataset=None,
     from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
     from nuhtc_tpu_torch.train.trainer import Trainer
 
+    if not 0 <= rank < world_size:
+        raise ValueError(f"train_detector: rank {rank} of {world_size}")
+    loader_seed = seed + rank * 100003
     pipeline = build_train_pipeline(cfg.get("train_pipeline", []))
     batch_size = cfg.get("samples_per_gpu", None) or cfg.get("data", {}).get(
         "samples_per_gpu", 8)
@@ -54,14 +64,15 @@ def train_detector(model, dataset, cfg, work_dir: str, test_dataset=None,
         strong = cfg.get("unsup_strong_pipeline")
         loader = SemiPrefetchLoader(
             dataset, pipeline, strong_pipeline=build_train_pipeline(strong) if strong else None,
-            batch_size=batch_size, sup_ratio=cfg.get("sup_ratio", 0.5), seed=seed)
+            batch_size=batch_size, sup_ratio=cfg.get("sup_ratio", 0.5), seed=loader_seed)
     else:
-        loader = PrefetchLoader(dataset, pipeline, batch_size=batch_size, seed=seed)
+        loader = PrefetchLoader(dataset, pipeline, batch_size=batch_size, seed=loader_seed)
     trainer_kw.setdefault("max_epochs", cfg.get("max_epochs", 200))
     trainer_kw.setdefault("iters_per_epoch", max(len(dataset) // batch_size, 1))
     trainer_kw.setdefault("checkpoint_interval", cfg.get("checkpoint_interval", 10))
     trainer_kw.setdefault("eval_interval", cfg.get("evaluation", {}).get("interval", 10))
-    trainer = Trainer(model, cfg, work_dir, seed=seed, compute_dtype=compute_dtype, **trainer_kw)
+    trainer = Trainer(model, cfg, work_dir, seed=seed, compute_dtype=compute_dtype, rank=rank,
+                      **trainer_kw)
     try:
         return trainer.run(loader, test_dataset, resume_from=resume_from)
     finally:

@@ -53,6 +53,7 @@ from nuhtc_tpu_torch.ops.anchors import grid_anchors
 from nuhtc_tpu_torch.ops.components import component_proposals_batched, resize_align_corners
 from nuhtc_tpu_torch.ops.mask_paste import paste_masks
 from nuhtc_tpu_torch.ops.watershed import watershed_segmentation
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.train import samplers as S
 from nuhtc_tpu_torch.train import targets as T
 
@@ -363,19 +364,20 @@ class NuHTC(nn.Module):
             with torch.no_grad():
                 union = self._pasted_max(batch, (ismask < 0.5) & gt_valid, (h, w), False)
                 pos_mask = (1.0 - union.clamp(0.0, 1.0))[..., None]
-        losses["loss_binary_seg"] = 0.2 * (L.sigmoid_ce(seg_pred, gt_seg_c) * pos_mask).mean()
+        losses["loss_binary_seg"] = 0.2 * P.share((L.sigmoid_ce(seg_pred, gt_seg_c) * pos_mask
+                                                   ).mean())
         if not self.fuse_aux_losses:
             return
         # the instance-by-instance distance keeps the valley between touching nuclei
         with torch.no_grad():
             keep = gt_valid if ismask is None else gt_valid & (ismask > 0.5)
             gt_dist = self._pasted_max(batch, keep, (h, w), True)
-        losses["loss_dist"] = 0.2 * ((torch.sigmoid(seg_dist)[..., None] - gt_dist[..., None]
-                                      ).abs() * pos_mask).mean()
+        losses["loss_dist"] = 0.2 * P.share(((torch.sigmoid(seg_dist)[..., None]
+                                              - gt_dist[..., None]).abs() * pos_mask).mean())
         labels = torch.where(gt_valid, batch["gt_labels"], 0).long()
         present = torch.zeros((labels.shape[0], self.num_classes), device=img.device)
         present = present.scatter_reduce(1, labels, gt_valid.float(), reduce="amax")
-        losses["loss_global_cls"] = 0.2 * L.sigmoid_ce(seg_cls, present).mean()
+        losses["loss_global_cls"] = 0.2 * P.share(L.sigmoid_ce(seg_cls, present).mean())
 
     def compute_losses(self, img: torch.Tensor, batch: Dict[str, torch.Tensor],
                        cum_samples: torch.Tensor, generator: torch.Generator | None = None):
@@ -387,7 +389,14 @@ class NuHTC(nn.Module):
         cum_samples (num_stages, C) seesaw counts; ``generator`` draws the
         samplers' uniforms and the backbone's stochastic depth, in this order:
         backbone, RPN sampler, then per stage the sample and the re-sample.
-        Returns (losses dict with "total", new cum_samples)."""
+        Returns (losses dict with "total", new cum_samples).
+
+        Inside a data-parallel step (``parallel.mesh.data_parallel``, which
+        the train steps enter) the losses are this rank's share of the global
+        batch's: each normalizer (the RPN's sample count, each stage's, the
+        Dice weights, the seesaw counts) is summed over the ranks, each mean
+        over images or pixels divided by the world size, and the draws are
+        the global batch's rows of this rank."""
         gt_boxes, gt_labels, gt_valid = batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"]
         b = gt_boxes.shape[0]
         h, w = img.shape[1:3]
@@ -414,7 +423,7 @@ class NuHTC(nn.Module):
         r_val = samp.valid.float()
         sel_cls = flat_cls.gather(1, samp.idx)
         sel_reg = flat_reg.gather(1, samp.idx[..., None].expand(-1, -1, 4))
-        num_total = r_val.sum().clamp(min=1.0)
+        num_total = P.global_sum(r_val.sum()).clamp(min=1.0)
         losses["loss_rpn_cls"] = (L.sigmoid_ce(sel_cls, samp.is_pos.float()) * r_val
                                   ).sum() / num_total
         losses["loss_rpn_bbox"] = (L.smooth_l1(sel_reg, r_tgt, beta=1.0 / 9.0)
@@ -465,7 +474,7 @@ class NuHTC(nn.Module):
             loss_cls, loss_obj, cum = L.seesaw_loss(
                 cls_score.reshape(-1, self.num_classes + 2), samp.labels.reshape(-1), flat_w,
                 cum_samples[stage])
-            avg = flat_w.sum().clamp(min=1.0)
+            avg = P.global_sum(flat_w.sum()).clamp(min=1.0)
             loss_bbox = (L.smooth_l1(bbox_pred, bbox_tgt, beta=1.0) * bbox_w[..., None]
                          ).sum() / avg
             losses[f"s{stage}.loss_cls"] = lw * loss_cls

@@ -6,6 +6,13 @@ WeightEXPLoss; mmdet SeesawLoss, CrossEntropyLoss, SmoothL1Loss). Every
 function is batched and takes explicit validity weights, so padded samples
 add nothing. SeesawLoss's per-class cumulative counts are an argument and a
 result (``cum_samples``), carried by the train state as in the JAX package.
+
+Inside a data-parallel step (``parallel.mesh.data_parallel``) every
+reduction over the batch spans the global batch, as the JAX package's
+sharded step computes it: a sum of weights that normalizes, and the seesaw
+counts, are summed over the ranks (``parallel.mesh.global_sum``), and a
+plain mean is the rank's share (``parallel.mesh.share``); elsewhere both
+are the identity.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.registry import LOSSES
 
 
@@ -33,8 +41,8 @@ def weight_reduce(loss, weight=None, reduction: str = "mean", avg_factor=None):
         return loss.sum()
     if avg_factor is None:
         if weight is None:
-            return loss.mean()
-        return loss.sum() / weight.sum().clamp(min=1e-12)
+            return P.share(loss.mean())
+        return loss.sum() / P.global_sum(weight.sum()).clamp(min=1e-12)
     return loss.sum() / torch.clamp(torch.as_tensor(avg_factor, dtype=loss.dtype), min=1e-12)
 
 
@@ -77,7 +85,7 @@ def dice_loss(pred, target, weight=None, eps: float = 1e-3, reduction: str = "me
     c = (t * t).sum(1) + eps
     loss = 1 - (2 * a) / (b + c)
     if weight is not None:
-        wsum = weight.sum()
+        wsum = P.global_sum(weight.sum())
         weight = torch.where(wsum == 0, torch.ones_like(weight), weight / wsum.clamp(min=1e-12))
         if reduction == "mean":
             return (loss * weight).sum()
@@ -99,10 +107,11 @@ def trunc_loss(pred, target, gamma: float = 0.3, eps: float = 1e-3):
 def seesaw_ce(cls_logits, labels, weights, cum_samples, p: float = 0.8, q: float = 2.0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cls_logits (N, C), labels (N,) in [0, C), weights (N,), cum_samples
-    (C,) → (per-sample loss (N,), updated cum_samples)."""
+    (C,) → (per-sample loss (N,), updated cum_samples: the counts of the
+    global batch)."""
     c = cls_logits.shape[-1]
     onehot = _one_hot(labels, c, cls_logits.dtype)
-    new_cum = cum_samples + (onehot * weights[:, None]).sum(0)
+    new_cum = cum_samples + P.global_sum((onehot * weights[:, None]).sum(0), "seesaw_counts")
     seesaw = torch.ones((c, c), dtype=cls_logits.dtype, device=cls_logits.device)
     if p > 0:
         # mmdet clamps both counts at 1: unseen classes are not annihilated
@@ -137,7 +146,7 @@ def seesaw_loss(cls_score, labels, weights, cum_samples, p: float = 0.8, q: floa
     cls_labels = torch.where(pos, labels, torch.zeros_like(labels))
     per_sample, new_cum = seesaw_ce(cls_logits, cls_labels, pos.to(cls_score.dtype),
                                     cum_samples, p, q)
-    loss_cls = per_sample.sum() / weights.sum().clamp(min=1.0)
+    loss_cls = per_sample.sum() / P.global_sum(weights.sum()).clamp(min=1.0)
     return loss_weight * loss_cls, loss_weight * loss_obj, new_cum
 
 

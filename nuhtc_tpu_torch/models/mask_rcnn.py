@@ -18,7 +18,9 @@ mask branch re-assigned over the ``ismask == 1`` gts only and capped at 128
 RoIs, and the mid-seg BCE: the stride-4 FPN map pixel-shuffled to the
 image's size, concatenated with the image, one 3×3 conv against the ×4
 nearest-upsampled ``gt_semantic != 0``. Every RoIAlign goes through
-``roi_align`` (K4 on CUDA tensors, K4's backward for its gradient).
+``roi_align`` (K4 on CUDA tensors, K4's backward for its gradient). Inside a
+data-parallel step the normalizers span the global batch, as NuHTC's do
+(``models/detector.py compute_losses``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
 from nuhtc_tpu_torch.ops import nms as nms_ops
 from nuhtc_tpu_torch.ops.anchors import grid_anchors
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.registry import DETECTORS
 from nuhtc_tpu_torch.train import targets as T
 
@@ -239,7 +242,7 @@ class MaskRCNN(nn.Module):
         r_val = samp.valid.float()
         sel_cls = flat_cls.gather(1, samp.idx)
         sel_reg = flat_reg.gather(1, samp.idx[..., None].expand(-1, -1, 4))
-        num_total = r_val.sum().clamp(min=1.0)
+        num_total = P.global_sum(r_val.sum()).clamp(min=1.0)
         losses["loss_rpn_cls"] = (L.sigmoid_ce(sel_cls, samp.is_pos.float()) * r_val
                                   ).sum() / num_total
         losses["loss_rpn_bbox"] = (L.smooth_l1(sel_reg, r_tgt, beta=1.0 / 9.0)
@@ -262,7 +265,7 @@ class MaskRCNN(nn.Module):
                                                  )[:, :, 0]
         bbox_tgt, bbox_w = T.encode_stage_targets(rois, samp, gt_boxes, BBOX_STDS)
         flat_w = samp.valid.reshape(-1).float()
-        avg = flat_w.sum().clamp(min=1.0)
+        avg = P.global_sum(flat_w.sum()).clamp(min=1.0)
         losses["loss_cls"] = (L.softmax_ce(cls.reshape(-1, c + 1), samp.labels.reshape(-1))
                               * flat_w).sum() / avg
         losses["loss_bbox"] = (L.smooth_l1(reg_sel, bbox_tgt, beta=1.0) * bbox_w[..., None]
@@ -284,7 +287,7 @@ class MaskRCNN(nn.Module):
         mtgt = T.mask_targets_from_patches(mrois, mgt, gt_boxes, batch["gt_patches"],
                                            mask_size=28)
         mvalid = mpos.float()
-        mavg = (mvalid.sum() * 28 * 28).clamp(min=1.0)
+        mavg = (P.global_sum(mvalid.sum()) * 28 * 28).clamp(min=1.0)
         losses["loss_mask"] = (L.sigmoid_ce(sel, mtgt) * mvalid[..., None, None]).sum() / mavg
 
         # ---- mid-seg aux loss -----------------------------------------------
@@ -292,7 +295,7 @@ class MaskRCNN(nn.Module):
             mid = self.mid_seg_logits(img, feats[0])  # (B, H, W)
             sem = (batch["gt_semantic"] != 0).float()
             sem_full = sem.repeat_interleave(4, dim=1).repeat_interleave(4, dim=2)[:, :h, :w]
-            losses["loss_mid_seg"] = L.sigmoid_ce(mid, sem_full).mean()
+            losses["loss_mid_seg"] = P.share(L.sigmoid_ce(mid, sem_full).mean())
 
         losses["total"] = sum(losses.values())
         if cum_samples is not None:

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nuhtc_tpu_torch.models.layers import MLP
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.ops.window_block import (
     BlockParams, shift_attn_mask, source_key, window_attention, window_block, window_partition,
     window_reverse,
@@ -42,8 +43,11 @@ KERNEL_TIERS = ("block", "attn", "none")
 
 
 def keep_mask(generator: torch.Generator, shape, keep: float, device) -> torch.Tensor:
-    """Bernoulli(keep) draws of stochastic depth, from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < keep
+    """Bernoulli(keep) draws of stochastic depth, from ``generator``: drawn
+    for the global batch inside a data-parallel step
+    (``parallel.mesh.data_parallel``), this rank's rows."""
+    return P.rank_rows(torch.rand(P.global_rows(shape), generator=generator,
+                                  device=device)) < keep
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

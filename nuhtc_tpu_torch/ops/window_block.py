@@ -154,12 +154,26 @@ class BlockParams:
         return tuple(getattr(self, name) for name in _BLOCK)
 
 
+_GATHERS = 0  # weights written without a version bump, counted by weights_gathered()
+
+
+def weights_gathered() -> None:
+    """Marks every parameter as rewritten. FSDP2 all-gathers sharded
+    parameters into reused storage under
+    ``torch.autograd._unsafe_preserve_version_counter``, so neither the
+    address nor the version counter of a gathered weight need change;
+    ``parallel.shard_rules.shard_state`` calls this after each gather."""
+    global _GATHERS
+    _GATHERS += 1
+
+
 def source_key(tensors) -> tuple:
     """Identity and state of parameter tensors: storage address, in-place
-    version counter, dtype and device. It changes when a parameter is
-    written in place (``load_state_dict``, an optimizer step), replaced, or
+    version counter, dtype and device, and the count of ``weights_gathered``
+    calls. It changes when a parameter is written in place
+    (``load_state_dict``, an optimizer step, an FSDP gather), replaced, or
     moved, and costs no device work."""
-    return tuple((t.data_ptr(), t._version, t.dtype, t.device) for t in tensors)
+    return (_GATHERS,) + tuple((t.data_ptr(), t._version, t.dtype, t.device) for t in tensors)
 
 
 def bias_fragments(bias49: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,21 @@ SQ / PQ / Dice / mPQ / mPQ+ suite and a confusion matrix
       [--cfg-options data.test.ann_file=... data.test.img_prefix=...] \\
       [--work-dir DIR] [--show-dir DIR] [--format-only] [--batch-size 16] \\
       [--limit N] [--out-json F] [--out F.pkl] [--device cpu]
+  torchrun --standalone --nproc_per_node=N -m nuhtc_tpu_torch.tools.test <config> \\
+      [checkpoint] --launcher pytorch [...]
 
 The model runs on the first CUDA device and raises without one; ``--device
 cpu`` asks for the CPU. ``run_dataset`` is the inference loop (read, the
 engine's strict-path ``run_batch``, RLE encoding into the reference result
 tuple); the tool prints images/s with the seconds of read, run_batch, encode
 and evaluate, and one line ``test: {json}`` with those figures.
+
+``--launcher pytorch`` evaluates over the processes torchrun starts (the JAX
+script's ``jax``; reference ``multi_gpu_test``): rank r runs images r, r + W,
+r + 2W, ... on ``cuda:LOCAL_RANK`` (or ``--device``), the results are
+gathered (``parallel.mesh.gather_objects``) and put back in dataset order
+(``merge_strided_results``) on rank 0, which alone evaluates, prints and
+writes; the other ranks return after the gather.
 """
 
 from __future__ import annotations
@@ -61,16 +70,21 @@ def result_tuple(res: Dict[str, np.ndarray], num_classes: int) -> Tuple[List, Li
 
 
 def run_dataset(engine, dataset, batch_size: int, limit: int = 0,
-                timing: Optional[Dict[str, float]] = None, progress: bool = False) -> List:
+                timing: Optional[Dict[str, float]] = None, progress: bool = False,
+                indices: Optional[Sequence[int]] = None) -> List:
     """Runs the engine over the first ``limit`` images of ``dataset`` (all
-    when 0), ``batch_size`` at a time; returns one ``result_tuple`` per
-    image. ``timing``, when given, gathers seconds under ``TIMING_KEYS``."""
-    n = len(dataset) if not limit else min(limit, len(dataset))
+    when 0), or over ``indices`` when given, ``batch_size`` at a time;
+    returns one ``result_tuple`` per image. ``timing``, when given, gathers
+    seconds under ``TIMING_KEYS``."""
+    if indices is None:
+        indices = range(len(dataset) if not limit else min(limit, len(dataset)))
+    indices = list(indices)
+    n = len(indices)
     results = []
     t_start = time.perf_counter()
     for start in range(0, n, batch_size):
         t0 = time.perf_counter()
-        imgs = [dataset.load_image(i) for i in range(start, min(start + batch_size, n))]
+        imgs = [dataset.load_image(i) for i in indices[start:start + batch_size]]
         t1 = time.perf_counter()
         out = engine.run_batch(imgs)
         t2 = time.perf_counter()
@@ -124,10 +138,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--limit", type=int, default=0, help="evaluate only the first N images")
     ap.add_argument("--out-json", default=None)
     ap.add_argument("--out", default=None, help="pickle the raw per-image results")
-    ap.add_argument("--launcher", choices=["none"], default="none",
-                    help="'none' only: one process on one device. Multi-process "
-                    "evaluation (images strided across processes, results gathered) "
-                    "is not ported yet")
+    ap.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                    help="'pytorch' = the processes torchrun starts: images strided "
+                    "across them, results gathered, rank 0 evaluates (reference "
+                    "multi_gpu_test + init_dist, tools/test.py:239)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the first CUDA device (raises without "
                     "one); 'cpu' runs on the CPU")
@@ -136,12 +150,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    from nuhtc_tpu_torch.apis.inference import init_detector, resolve_device
+    from nuhtc_tpu_torch.apis.inference import resolve_device
+    from nuhtc_tpu_torch.parallel import mesh as P
+
+    device = resolve_device(args.device, "test")
+    with P.launched(args.launcher, device, args.device is not None) as (device, pid, nproc):
+        return _evaluate(args, device, nproc, pid)
+
+
+def _evaluate(args, device, nproc: int, pid: int) -> int:
+    from nuhtc_tpu_torch.apis.inference import init_detector
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.data.coco import build_dataset
     from nuhtc_tpu_torch.eval.evaluate import evaluate_dataset
+    from nuhtc_tpu_torch.parallel import mesh as P
 
-    device = resolve_device(args.device, "test")
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1) for kv in args.cfg_options))
@@ -151,7 +174,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     n = len(dataset) if not args.limit else min(args.limit, len(dataset))
     timing = dict.fromkeys(TIMING_KEYS, 0.0)
     t0 = time.perf_counter()
-    results = run_dataset(engine, dataset, args.batch_size, n, timing, progress=True)
+    # interleaved, like mmdet's DistributedSampler: process p → p, p + P, ...
+    my_idxs = list(range(pid, n, nproc))
+    results = run_dataset(engine, dataset, args.batch_size, timing=timing,
+                          progress=pid == 0, indices=my_idxs)
+    if nproc > 1:
+        parts = P.gather_objects(list(zip(my_idxs, results)))
+        if pid != 0:
+            return 0  # rank 0 evaluates (reference collect_results → rank 0)
+        results = P.merge_strided_results(parts)
 
     if args.out:
         with open(args.out, "wb") as f:

@@ -4,6 +4,8 @@ module; reference tools/train.py).
   python -m nuhtc_tpu_torch.tools.train configs/nuhtc/htc_lite_swin_fpn_pannuke.py \\
       [--work-dir DIR] [--resume-from CKPT] [--cfg-options k=v ...] [--device cpu]
   python -m nuhtc_tpu_torch.tools.train configs/nuhtc/semi_base.py ...
+  torchrun --standalone --nproc_per_node=N -m nuhtc_tpu_torch.tools.train <config> \\
+      --launcher pytorch [...]
 
 A config with ``semi_wrapper`` and a ``SemiDataset`` trains the teacher and
 student of the semi-supervised recipe (``SemiPrefetchLoader``, the
@@ -16,6 +18,14 @@ EMA stay f32. Writes <work-dir>/train.log, <work-dir>/log.json and
 <work-dir>/checkpoints/step_<epoch>.pt; without --work-dir the config's
 ``work_dir`` or ./work_dirs/<config name>. Weights start from a seed
 (``init_random_weights``).
+
+``--launcher pytorch`` (the reference's name; the JAX script's ``jax``)
+trains data-parallel, one process per card as torchrun starts them: the
+process group from torchrun's environment (NCCL on the cards, gloo with
+``--device cpu``; without that environment it raises), each process on
+``cuda:LOCAL_RANK`` unless ``--device`` names one, ``samples_per_gpu``
+images a rank, the global batch's loss and gradient (``parallel.mesh``);
+rank 0 writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -41,9 +51,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="seed Python, numpy and torch and ask torch for deterministic "
                     "algorithms (reference --deterministic): two runs of one seed give "
                     "the same weights bit for bit")
-    ap.add_argument("--launcher", choices=["none"], default="none",
-                    help="'none' only: one process on one device; data-parallel "
-                    "training is not ported yet")
+    ap.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                    help="'pytorch' = data-parallel over the processes torchrun "
+                    "starts (reference init_dist, tools/train.py:136)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the first CUDA device (raises without "
                     "one); 'cpu' trains on the CPU")
@@ -54,15 +64,24 @@ def main(argv: Optional[Sequence[str]] = None, trainer_kw: Optional[dict] = None
     """Runs the training; returns the final train state. ``trainer_kw``
     (from Python only) reaches ``Trainer``, e.g. ``record_timing=[]``."""
     args = parse_args(argv)
+    from nuhtc_tpu_torch.apis.inference import resolve_device
+    from nuhtc_tpu_torch.parallel import mesh as P
+
+    device = resolve_device(args.device, "train")
+    with P.launched(args.launcher, device, args.device is not None) as (device, rank, world):
+        if world > 1 or P.is_distributed():
+            print(f"distributed: rank {rank} of {world} on {device}", flush=True)
+        return _train(args, device, rank, world, trainer_kw)
+
+
+def _train(args, device, rank: int, world: int, trainer_kw: Optional[dict]):
     import torch
 
-    from nuhtc_tpu_torch.apis.inference import resolve_device
     from nuhtc_tpu_torch.apis.train import set_random_seed, train_detector
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.data.coco import build_dataset
     from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
 
-    device = resolve_device(args.device, "train")
     if args.deterministic:
         set_random_seed(args.seed, deterministic=True)
     # f32 products stay f32 on the card: no TF32 in matmuls or convolutions
@@ -101,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None, trainer_kw: Optional[dict] = None
     return train_detector(model, train_ds, cfg, work_dir, test_dataset=test_ds,
                           resume_from=args.resume_from, seed=args.seed,
                           compute_dtype=torch.bfloat16 if device.type == "cuda" else None,
-                          **kw)
+                          rank=rank, world_size=world, **kw)
 
 
 if __name__ == "__main__":

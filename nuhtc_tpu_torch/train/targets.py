@@ -25,6 +25,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from nuhtc_tpu_torch.ops import boxes as box_ops
+from nuhtc_tpu_torch.parallel import mesh as P
 
 BIG = 1e9  # priority of a slot that takes no candidate
 
@@ -45,8 +46,11 @@ class SampleResult(NamedTuple):
 
 def uniform(generator: torch.Generator | None, shape: Sequence[int],
             device: torch.device) -> torch.Tensor:
-    """The samplers' uniform draws in [0, 1), f32, from ``generator``."""
-    return torch.rand(tuple(shape), generator=generator, device=device)
+    """The samplers' uniform draws in [0, 1), f32, from ``generator``: drawn
+    for the global batch inside a data-parallel step
+    (``parallel.mesh.data_parallel``), this rank's rows
+    (``parallel.mesh.rank_rows``); ``shape`` itself elsewhere."""
+    return P.rank_rows(torch.rand(P.global_rows(shape), generator=generator, device=device))
 
 
 def max_iou_assign(boxes, boxes_valid, gt, gt_valid, gt_labels, pos_thr: float,

@@ -23,6 +23,17 @@ branches and moves the teacher's parameters, in place, by an EMA whose
 momentum warms up: m = min(momentum, 1 - (1 + warm_up) / (step + 1 +
 warm_up)), 0 at step 0; the unsupervised branch is weighted 0 during
 ``burn_in`` steps.
+
+Both steps are data-parallel inside a process group (``parallel.mesh``):
+their forward runs in ``parallel.mesh.data_parallel()``, so each rank's
+losses are its share of the global batch's (``models/detector.py
+compute_losses``), the gradients are summed over the
+ranks in one bucketed all-reduce before the optimizer (the frozen leaves
+zeroed after it), so every rank takes the same update, and the metrics
+(losses, ``grad_norm``) are the global batch's. Under FSDP2
+(``parallel.shard_rules.shard_state``) the sharded parameters' gradients
+arrive summed from FSDP's reduce-scatter, and the optimizer, the EMA and
+the moments work on their shards (DTensors).
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.tools.timing import synced_clock
 
 FROZEN_PREFIXES = ("backbone.patch_embed.", "backbone.stages.0.", "backbone.norm0.")
@@ -66,6 +79,14 @@ def frozen_mask(names: Iterable[str], prefixes: Sequence[str] = FROZEN_PREFIXES
     the patch embedding and stage 0 with its PatchMerging (mmdet
     _freeze_stages) and stage 0's output norm."""
     return {n: n.startswith(tuple(prefixes)) for n in names}
+
+
+def _foreach_groups(params: Dict[str, torch.Tensor]) -> list:
+    """The names of ``params`` split into plain tensors and DTensors (a
+    foreach op takes one kind), empty groups left out."""
+    plain = [n for n, p in params.items() if not isinstance(p, DTensor)]
+    sharded = [n for n, p in params.items() if isinstance(p, DTensor)]
+    return [g for g in (plain, sharded) if g]
 
 
 @dataclasses.dataclass
@@ -101,25 +122,25 @@ class AdamW:
         # optax's bias corrections, in f32
         c1 = 1.0 - float(torch.tensor(b1, dtype=torch.float32) ** state.count)
         c2 = 1.0 - float(torch.tensor(b2, dtype=torch.float32) ** state.count)
-        names = list(params)
-        g = [grads[n] for n in names]
-        mu = [state.mu[n] for n in names]
-        nu = [state.nu[n] for n in names]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - b1)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-        den = torch._foreach_div(nu, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(torch._foreach_div(mu, c1), den)
         out = {}
-        for n, u in zip(names, upd):
-            wd = self.weight_decay[n]
-            if wd:
-                u.add_(params[n], alpha=wd)
-            out[n] = u.mul_(-lr * self.lr_mult[n])
-        return out
+        for names in _foreach_groups(params):
+            g = [grads[n] for n in names]
+            mu = [state.mu[n] for n in names]
+            nu = [state.nu[n] for n in names]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+            den = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            upd = torch._foreach_div(torch._foreach_div(mu, c1), den)
+            for n, u in zip(names, upd):
+                wd = self.weight_decay[n]
+                if wd:
+                    u.add_(params[n], alpha=wd)
+                out[n] = u.mul_(-lr * self.lr_mult[n])
+        return {n: out[n] for n in params}
 
 
 def create_optimizer(names: Iterable[str], schedule, weight_decay: float = 0.05) -> AdamW:
@@ -162,27 +183,49 @@ def _autocast(device: torch.device, compute_dtype: Optional[torch.dtype]):
             else contextlib.nullcontext())
 
 
+def _global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """The 2-norm of all ``tensors`` together (a DTensor's over its shards)."""
+    norms = [torch.linalg.vector_norm(g) for g in tensors]
+    return torch.linalg.vector_norm(torch.stack(
+        [n.full_tensor() if isinstance(n, DTensor) else n for n in norms]))
+
+
 @torch.no_grad()
 def _apply_adamw(tx: "AdamW", opt_state: AdamWState, params: Dict[str, torch.Tensor],
                  frozen: Sequence[str], frozen_now: bool) -> torch.Tensor:
     """One AdamW update of ``params`` in place from their ``.grad`` (zero
-    where None); while ``frozen_now`` the frozen leaves' gradients and
-    updates are zeroed (AdamW's decoupled decay would still move them).
-    Returns the global norm of the gradients the optimizer took."""
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in params.items()}
+    where None), after the gradients of plain (not FSDP-sharded) parameters
+    are summed over the ranks in place; while ``frozen_now`` the frozen
+    leaves' gradients and updates are zeroed (AdamW's decoupled decay would
+    still move them). Returns the global norm of the gradients the
+    optimizer took."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    P.all_reduce_sum([p.grad for p in params.values() if not isinstance(p, DTensor)])
+    grads = {n: p.grad for n, p in params.items()}
     if frozen_now:
         for n in frozen:
             grads[n] = torch.zeros_like(grads[n])
-    grad_norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+    grad_norm = _global_norm(grads.values())
     updates = tx.update(grads, opt_state, params)
     if frozen_now:
         for n in frozen:
             updates[n].zero_()
-    keys = list(params)
-    torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
+    for keys in _foreach_groups(params):
+        torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
     return grad_norm
+
+
+def _global_metrics(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The losses detached; in a process group summed over the ranks (each
+    rank's loss is its share), in one all-reduce."""
+    metrics = {k: v.detach() for k, v in losses.items()}
+    if P.is_distributed():
+        total = torch.stack([v.float() for v in metrics.values()])
+        P.all_reduce_sum([total], "losses")
+        metrics = dict(zip(metrics, total.unbind()))
+    return metrics
 
 
 def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-4,
@@ -206,7 +249,7 @@ def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-
         for p in params.values():
             p.grad = None
         t0 = synced_clock(dev) if timing is not None else 0.0
-        with _autocast(dev, compute_dtype):
+        with P.data_parallel(), _autocast(dev, compute_dtype):
             losses, new_cum = model.compute_losses(batch["img"], batch, state.cum_samples,
                                                    generator)
             if weighter is not None:
@@ -217,16 +260,16 @@ def make_train_step(model: torch.nn.Module, tx: AdamW, ema_momentum: float = 2e-
         with torch.no_grad():
             grad_norm = _apply_adamw(tx, state.opt_state, params, frozen,
                                      state.step < finetune_iter)
-            keys = list(params)
-            ema = [state.ema_params[k] for k in keys]
-            torch._foreach_mul_(ema, 1.0 - ema_momentum)
-            torch._foreach_add_(ema, [params[k] for k in keys], alpha=ema_momentum)
+            for keys in _foreach_groups(params):
+                ema = [state.ema_params[k] for k in keys]
+                torch._foreach_mul_(ema, 1.0 - ema_momentum)
+                torch._foreach_add_(ema, [params[k] for k in keys], alpha=ema_momentum)
         if timing is not None:
             t3 = synced_clock(dev)
             timing.update(forward_s=t1 - t0, backward_s=t2 - t1, optimizer_s=t3 - t2)
         state.step += 1
         state.cum_samples = new_cum.detach()
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = _global_metrics(losses)
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
@@ -304,7 +347,7 @@ def make_semi_train_step(wrapper, tx: AdamW, teacher_momentum: float = 0.999,
             p.grad = None
         uw = 0.0 if state.step < burn_in else unsup_weight
         t0 = synced_clock(dev) if timing is not None else 0.0
-        with _autocast(dev, compute_dtype):
+        with P.data_parallel(), _autocast(dev, compute_dtype):
             losses, new_cum = wrapper.semi_loss(
                 batch, batch["unsup_img"], state.cum_samples, unsup_weight=uw,
                 generator=generator, unsup_img_teacher=batch.get("unsup_img_teacher"),
@@ -321,7 +364,7 @@ def make_semi_train_step(wrapper, tx: AdamW, teacher_momentum: float = 0.999,
                           optimizer_s=t3 - t2)
         state.step += 1
         state.cum_samples = new_cum.detach()
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = _global_metrics(losses)
         metrics["grad_norm"] = grad_norm
         metrics["ema_momentum"] = torch.tensor(m)
         return state, metrics

@@ -1,16 +1,26 @@
-"""Epoch-based training on one device (port of nuhtc_tpu/train/trainer.py;
-the mmcv EpochBasedRunner equivalent): the threaded loader, the AdamW + EMA
+"""Epoch-based training on one device or data-parallel over a process group
+(port of nuhtc_tpu/train/trainer.py; the mmcv EpochBasedRunner equivalent):
+the threaded loader, the AdamW + EMA
 step (or, for a config with ``semi_wrapper``, the teacher/student step),
 text and json logs (``train.log``, ``log.json``, the JAX trainer's lines),
 checkpoints every ``checkpoint_interval`` epochs keeping
 ``max_keep_ckpts``, explicit and automatic resume, and evaluation every
 ``eval_interval`` epochs, of the EMA weights (the teacher's and the
 student's in a semi run) through the port's ``InferenceEngine`` and
-``evaluate_dataset``. Data parallelism waits for ROADMAP Queue 1 item 16.
+``evaluate_dataset``.
+
+In a process group (``parallel.mesh.init_distributed``) every rank trains on
+its own local batches, the step sums the gradients over the ranks, and the
+metrics it returns are the global batch's. The parameters start as rank 0's
+(broadcast after any resume, which every rank reads). Rank 0 alone writes
+``log.json``, ``train.log``, the checkpoints and the evaluations; the other
+ranks wait for it at a barrier after each checkpoint and evaluation. Every
+rank logs its device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -19,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.utils.logging import get_root_logger
 
 
@@ -28,13 +39,14 @@ class Trainer:
                  checkpoint_interval: int = 10, eval_interval: int = 10,
                  max_keep_ckpts: int = 40, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = None,
-                 record_timing: Optional[list] = None):
+                 record_timing: Optional[list] = None, rank: int = 0):
         """``model``: the detector on its device, f32 (the student of a semi
         run). ``compute_dtype``: the forward's type under autocast (bf16 on
         the card), None for f32. ``record_timing``: a list that receives each
         step's synchronized split (loader_wait_s, forward_s, backward_s,
         optimizer_s: the optimizer and the EMA; teacher_s in a semi run,
-        which forward_s leaves out)."""
+        which forward_s leaves out). ``rank``: this process's rank in the
+        process group; only rank 0 writes files."""
         self.model = model
         self.cfg = cfg
         self.work_dir = work_dir
@@ -47,9 +59,11 @@ class Trainer:
         self.seed = seed
         self.compute_dtype = compute_dtype
         self.record_timing = record_timing
-        os.makedirs(work_dir, exist_ok=True)
-        self.logger = get_root_logger(os.path.join(work_dir, "train.log"))
-        self.json_log = None  # log.json, open while run() runs
+        self.rank = rank
+        if rank == 0:
+            os.makedirs(work_dir, exist_ok=True)
+        self.logger = get_root_logger(os.path.join(work_dir, "train.log") if rank == 0 else None)
+        self.json_log = None  # log.json, open on rank 0 while run() runs
 
     def _hook_settings(self):
         """EMA momentum, the MeanTeacher hook's momentum (None when absent)
@@ -73,7 +87,9 @@ class Trainer:
     def run(self, loader, test_dataset=None, resume_from: Optional[str] = None):
         """Trains from the start, a checkpoint or the work dir's newest
         checkpoint to ``max_epochs``; returns the train state."""
-        with open(os.path.join(self.work_dir, "log.json"), "a") as self.json_log:
+        log_json = (open(os.path.join(self.work_dir, "log.json"), "a") if self.rank == 0
+                    else contextlib.nullcontext())
+        with log_json as self.json_log:
             return self._run(loader, test_dataset, resume_from)
 
     def _run(self, loader, test_dataset, resume_from):
@@ -85,10 +101,11 @@ class Trainer:
         model = self.model
         device = next(model.parameters()).device
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-        self.logger.info(f"device: {device} ({name})")
-        if self.cfg.get("weight_summary", True):
+        rank, world = P.world()
+        self.logger.info(f"rank {rank} of {world}: device {device} ({name})")
+        if self.rank == 0 and self.cfg.get("weight_summary", True):
             WeightSummary()(model.named_parameters(), self.logger)
-        else:
+        elif self.rank == 0:
             n_params = sum(p.numel() for p in model.parameters())
             self.logger.info(f"params: {n_params / 1e6:.2f}M")
 
@@ -119,8 +136,10 @@ class Trainer:
         elif ckpt.latest_step(ckpt_dir) is not None:
             start_epoch = self._resume(ckpt, ckpt_dir, state)
             self.logger.info(f"auto-resumed from epoch {start_epoch}")
+        # every rank starts from rank 0's weights and train state
+        P.replicate([*model.parameters(), *model.buffers(), *self._state_tensors(state)])
 
-        vis_hook = self._vis_hook(test_dataset)
+        vis_hook = self._vis_hook(test_dataset) if self.rank == 0 else None
         generator = torch.Generator(device=device)
         it = iter(loader)
         t_start = time.time()
@@ -139,7 +158,7 @@ class Trainer:
                     timing["loader_wait_s"] = wait
                     self.record_timing.append(timing)
                 gstep = epoch * self.iters_per_epoch + i
-                if (i + 1) % self.log_interval == 0:
+                if (i + 1) % self.log_interval == 0 and self.rank == 0:
                     self._log_train(epoch, i, schedule(gstep), metrics)
                 if vis_hook is not None and gstep and gstep % vis_hook.interval == 0:
                     try:
@@ -148,15 +167,19 @@ class Trainer:
                     except Exception as e:  # the overlays must not stop training
                         self.logger.warning(f"mask_vis failed: {e}")
             if (epoch + 1) % self.checkpoint_interval == 0 or epoch + 1 == self.max_epochs:
-                ckpt.save_checkpoint(ckpt_dir, state, model, step=epoch + 1,
-                                     keep=self.max_keep_ckpts)
-                self.logger.info(f"saved checkpoint @ epoch {epoch + 1}")
+                if self.rank == 0:
+                    ckpt.save_checkpoint(ckpt_dir, state, model, step=epoch + 1,
+                                         keep=self.max_keep_ckpts)
+                    self.logger.info(f"saved checkpoint @ epoch {epoch + 1}")
+                P.barrier()
             if test_dataset is not None and (epoch + 1) % self.eval_interval == 0:
-                for name, sd in self._eval_submodules(state).items():
-                    try:
-                        self._evaluate(test_dataset, sd, tag=name, epoch=epoch + 1)
-                    except Exception as e:  # evaluation must not stop training
-                        self.logger.warning(f"eval[{name}] failed: {e}")
+                if self.rank == 0:
+                    for name, sd in self._eval_submodules(state).items():
+                        try:
+                            self._evaluate(test_dataset, sd, tag=name, epoch=epoch + 1)
+                        except Exception as e:  # evaluation must not stop training
+                            self.logger.warning(f"eval[{name}] failed: {e}")
+                P.barrier()
         self.logger.info(f"training done in {(time.time() - t_start) / 3600:.2f}h")
         return state
 
@@ -194,6 +217,14 @@ class Trainer:
             unsup_weight=semi_cfg.get("unsup_weight", 1.0),
             burn_in=semi_cfg.get("burn_in", 0), finetune_iter=finetune_iter,
             weighter=weighter, compute_dtype=self.compute_dtype)
+
+    @staticmethod
+    def _state_tensors(state) -> list:
+        """The train state's tensors besides the model's parameters: the
+        moments, the EMA or the teacher, the seesaw counts."""
+        out = [*state.opt_state.mu.values(), *state.opt_state.nu.values(), state.cum_samples]
+        extra = state.teacher_params if hasattr(state, "teacher_params") else state.ema_params
+        return out + list(extra.values())
 
     def _resume(self, ckpt, path: str, state) -> int:
         """Loads a checkpoint file or the newest of a directory into

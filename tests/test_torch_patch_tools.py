@@ -203,10 +203,18 @@ def test_run_dataset_is_the_loop_of_the_command_line(world, eval_runs):
         assert gs == ws
 
 
-def test_launcher_offers_none_only():
-    assert test_tool.parse_args([CFG]).launcher == "none"
+@pytest.mark.parametrize("tool", ["test", "train"])
+def test_launcher_offers_none_and_pytorch(tool):
+    """``--launcher`` takes the reference's "none" (the default) and
+    "pytorch" (data-parallel over torchrun's processes); the JAX scripts'
+    "jax" is theirs alone."""
+    from nuhtc_tpu_torch.tools import train as train_tool
+
+    parse = {"test": test_tool, "train": train_tool}[tool].parse_args
+    assert parse([CFG]).launcher == "none"
+    assert parse([CFG, "--launcher", "pytorch"]).launcher == "pytorch"
     with pytest.raises(SystemExit):
-        test_tool.parse_args([CFG, "--launcher", "jax"])
+        parse([CFG, "--launcher", "jax"])
 
 
 def _json_dets(path):
