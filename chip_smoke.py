@@ -180,6 +180,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      samples) on phase_eval's release, and the end-to-end golden chain
      (``misc.run_e2e_golden``) on the card: the device-free hashes equal to
      tests/goldens/e2e_synthetic_torch.json, the summary beside it;
+ 12e. the benchmark tools and ``utils.profiling`` (``phase_benchmark``) on
+     the PanNuke config at full width, bf16, on phase 10's checkpoint:
+     ``analysis_tools.benchmark`` at B16 (20 iterations, log interval 10, 2
+     repeats; img/s; 12 K1, 4 K4, ≥ 1 K3 a forward), ``benchmark_wsi`` over
+     its 64-tile synthetic slide (two passes at B16 in WSI mode: every tile,
+     nuclei > 0, the parts within the wall; tiles/s), ``profiling.trace``
+     around one ``run_batch`` (the span and a kernel event, or a dropped
+     record, for each of K1's 12 launches in the Chrome trace),
+     ``benchmark_train`` at B8 (finite metrics; 4 K4, 4 K4-backward, ≥ 1 K3
+     a step; ms/step; K4 and its backward at the step's four calls against
+     the plain versions, as in phase_train), ``get_flops`` at 512² on the card and the CPU
+     (equal counts; the parameters the engine's), and
+     ``misc.wsi_throughput_summary`` over an ``infer_wsi`` run on 16 of the
+     slide's tiles (its lines against the files);
  13. the semi-supervised recipe (``phase_semi``), configs/nuhtc/semi_base.py
      as shipped (Mask R-CNN, Swin-T, FPN 64, 8 classes) on a synthetic NuCLS
      release written by the phase: serving at B16 in WSI mode and on the
@@ -205,7 +219,8 @@ The line before the last is a JSON object with each kernel's launches (also
 by path: wsi, strict, slide, embed, eval, patch, robustness, train,
 train_configs, parallel_train, parallel_test, parallel_2rank, parallel_2d,
 cus_serve, cus_train, fuse_serve, fuse_train, backbones, extractors,
-golden, semi_serve, semi_train; K4's backward is an entry of its own),
+golden, benchmark, benchmark_wsi, benchmark_train, semi_serve, semi_train;
+K4's backward is an entry of its own),
 error, times and bound (the least time the card could take: the larger of
 the bytes moved once over 3.35 TB/s and the operations over the peak rate
 for their type); the last line is {"ok": true, "device": {...}}.
@@ -213,6 +228,7 @@ for their type); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1511,6 +1527,103 @@ def _k4_backward_work(maps, rois, scales, out_size, ratios, pools, with_bias):
     return flops, nbytes
 
 
+@contextlib.contextmanager
+def _capture_k4_calls(captured, on_call=None):
+    """Wraps the RoI extractor's ``roi_align_sum`` for the body: the first
+    four calls that take part in autograd (a train step's) are copied into
+    ``captured`` as (maps, rois, bias, args), and ``on_call(out)`` sees the
+    output of every such call. The wrapped call is the wrapper itself, so the
+    launch counts are those of the run."""
+    from nuhtc_tpu_torch.models import roi_extractor
+
+    plain_sum = roi_extractor.roi_align_sum
+
+    def capturing_sum(maps, rois, *args, **kw):
+        out = plain_sum(maps, rois, *args, **kw)
+        if out.grad_fn is not None:
+            if len(captured) < 4:
+                captured.append(([m.detach().clone() for m in maps], rois.detach().clone(),
+                                 kw["bias"].detach().clone(), args))
+            if on_call is not None:
+                on_call(out)
+        return out
+
+    roi_extractor.roi_align_sum = capturing_sum
+    try:
+        yield captured
+    finally:
+        roi_extractor.roi_align_sum = plain_sum
+
+
+def _check_k4_train_call(maps16, rois, bias, args, label):
+    """K4 and K4's backward at one captured train-step call, on the card,
+    against their plain versions on the same inputs. The forward: in f32
+    (the maps' f32 copies) against ``roi_align_sum_plain``, 1e-4 of the
+    summed largest magnitudes of the maps and the bias; in the maps' own
+    type against the plain version on their f32 copies, 2^-7 of that sum
+    (one rounding). The backward: in f32 against the plain version's
+    gradients (1e-4 of each map's gradient scale, the bias's too); in bf16,
+    as the train step runs it, against the plain gradients of the f32
+    upcast (2^-7 of their scale); two more calls in each type bit-equal.
+    Returns (the bf16 gradient used, dict of the errors)."""
+    import torch
+    from nuhtc_tpu_torch.ops import roi_align as ra
+
+    out_size = args[1]
+    shapes = [tuple(m.shape) for m in maps16]
+    where = (f"{label}: K4 at a train-step call (B{rois.shape[0]} R{rois.shape[1]} out "
+             f"{out_size}, maps {[s[1:3] for s in shapes]})")
+    # forward
+    maps32 = [m.to(torch.float32, copy=True) for m in maps16]
+    scale_f = sum(m.abs().max().item() for m in maps32) + bias.abs().max().item()
+    want = ra.roi_align_sum_plain(maps32, rois, *args, bias=bias.float())
+    got32 = ra.roi_align_sum(maps32, rois, *args, bias=bias.float())
+    got16 = ra.roi_align_sum(maps16, rois, *args, bias=bias)
+    torch.cuda.synchronize()
+    ef32 = (got32 - want).abs().max().item() / max(scale_f, 1e-30)
+    ef16 = (got16.float() - want).abs().max().item() / max(scale_f, 1e-30)
+    if (got16.shape != want.shape or got16.dtype != maps16[0].dtype
+            or not np.isfinite(ef32) or not np.isfinite(ef16) or ef32 > 1e-4
+            or ef16 > 2.0 ** -7):
+        raise AssertionError(f"{where}: forward f32 err {ef32}, {maps16[0].dtype} err {ef16} "
+                             f"of the summed magnitudes {scale_f}")
+    del want, got32, got16
+    gen = torch.Generator(device=rois.device).manual_seed(len(shapes) + out_size)
+    g32 = torch.randn((rois.shape[0], rois.shape[1], out_size, out_size, shapes[0][3]),
+                      generator=gen, device=rois.device)
+    # f32: the kernel's gradients against the plain version's
+    maps32 = [m.requires_grad_(True) for m in maps32]
+    b32 = bias.clone().requires_grad_(True)
+    ra.roi_align_sum(maps32, rois, *args, bias=b32).backward(g32)
+    want32, want_b = ra.roi_align_sum_backward_plain(g32, shapes, rois, *args, True)
+    torch.cuda.synchronize()
+    err32 = 0.0
+    for m, w in zip(maps32, want32):
+        err32 = max(err32, (m.grad - w).abs().max().item() / max(w.abs().max().item(), 1e-30))
+    eb = (b32.grad - want_b).abs().max().item() / want_b.abs().max().item()
+    # bf16, as the train step runs it
+    g16 = g32.bfloat16()
+    maps_b = [m.clone().requires_grad_(True) for m in maps16]
+    ra.roi_align_sum(maps_b, rois, *args, bias=bias).backward(g16)
+    ref, _ = ra.roi_align_sum_backward_plain(g16.float(), shapes, rois, *args, True)
+    # the same bits from every call: twice more in each type
+    for grads, g in (([m.grad for m in maps32] + [b32.grad], g32),
+                     ([m.grad for m in maps_b], g16)):
+        for _ in range(2):
+            again, again_b = ra.roi_align_sum_backward(g, shapes, rois, *args, True)
+            if not all(torch.equal(a, w) for a, w in zip(again + [again_b], grads)):
+                raise AssertionError(f"{where}: backward ({g.dtype}), two calls on the same "
+                                     f"inputs differ")
+    torch.cuda.synchronize()
+    e16 = 0.0
+    for m, w in zip(maps_b, ref):
+        e16 = max(e16, (m.grad.float() - w).abs().max().item() / w.abs().max().item())
+    if err32 > 1e-4 or eb > 1e-4 or e16 > 2.0 ** -7:
+        raise AssertionError(f"{where}: backward f32 err {err32} (of each map's scale), bias "
+                             f"{eb}, bf16 err {e16}")
+    return g16, dict(fwd32=ef32, fwd16=ef16, bwd32=err32, bias=eb, bwd16=e16)
+
+
 def phase_train(device, tmp, ctx):
     """Supervised training through ``python -m nuhtc_tpu_torch.tools.train``
     (``main(argv)``) at full width: the PanNuke config (Swin-T 96, depths
@@ -1528,10 +1641,12 @@ def phase_train(device, tmp, ctx):
     use_ema=True)`` and one ``run_batch`` on the card; (d) PROFILED_STEPS
     steps under torch.profiler: the card's idle share over them, and the
     peak memory; (e) K4 forward and backward at the four calls of a train
-    step (captured from (a)'s first step) against the plain version (f32:
-    1e-4 of each map's gradient scale; bf16: 2^-7 of the f32 plain
-    gradients' scale), and their times per step against the bound and the
-    plain autograd version. Returns (launches, K4 backward's figures)."""
+    step (captured from (a)'s first step) against the plain version
+    (``_check_k4_train_call``: the forward within 1e-4 in f32 and 2^-7 in
+    bf16 of the summed magnitudes; the backward within 1e-4 of each map's
+    gradient scale in f32 and 2^-7 of the f32 plain gradients' scale in
+    bf16), and their times per step against the bound and the plain
+    autograd version. Returns (launches, K4 backward's figures)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1540,7 +1655,6 @@ def phase_train(device, tmp, ctx):
     from nuhtc_tpu_torch.data.coco import build_dataset
     from nuhtc_tpu_torch.data.loader import PrefetchLoader
     from nuhtc_tpu_torch.data.pipelines import build_train_pipeline
-    from nuhtc_tpu_torch.models import roi_extractor
     from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
     from nuhtc_tpu_torch.ops import roi_align as ra
     from nuhtc_tpu_torch.tools import train as train_tool
@@ -1559,28 +1673,18 @@ def phase_train(device, tmp, ctx):
     # backward hands to p2 at every call (a hook on the call's autograd node:
     # its grad_inputs follow the forward's inputs, rois, bias, spec, p2, ...)
     captured, p2_grad = [], []
-    plain_sum = roi_extractor.roi_align_sum
 
-    def capturing_sum(maps, rois, *args, **kw):
-        out = plain_sum(maps, rois, *args, **kw)
-        if out.grad_fn is not None:
-            if len(captured) < 4:
-                captured.append(([m.detach().clone() for m in maps], rois.detach().clone(),
-                                 kw["bias"].detach().clone(), args))
-            out.grad_fn.register_hook(
-                lambda grad_in, grad_out: p2_grad.append(grad_in[3].float().abs().max()))
-        return out
+    def p2_hook(out):
+        out.grad_fn.register_hook(
+            lambda grad_in, grad_out: p2_grad.append(grad_in[3].float().abs().max()))
 
     timing = []
-    roi_extractor.roi_align_sum = capturing_sum
     reset_counts()
     t0 = time.perf_counter()
-    try:
+    with _capture_k4_calls(captured, p2_hook):
         state = train_tool.main(argv + ["--max-epochs", "2"],
                                 trainer_kw=dict(record_timing=timing))
         torch.cuda.synchronize()
-    finally:
-        roi_extractor.roi_align_sum = plain_sum
     wall_a = time.perf_counter() - t0
     counts_a = read_counts()
     steps = 2 * TRAIN_ITERS
@@ -1719,42 +1823,10 @@ def phase_train(device, tmp, ctx):
     err32 = err16 = 0.0
     tot = dict(ff=0.0, fb=0.0, bf=0.0, bb=0.0)
     for maps16, rois, bias, args in captured:
-        scales, out_size, ratios, pools = args
         shapes = [tuple(m.shape) for m in maps16]
-        gen = torch.Generator(device=device).manual_seed(len(shapes) + out_size)
-        g32 = torch.randn((rois.shape[0], rois.shape[1], out_size, out_size, shapes[0][3]),
-                          generator=gen, device=device)
-        # f32: the kernel's gradients against autograd through the plain version
-        maps32 = [m.float().requires_grad_(True) for m in maps16]
-        b32 = bias.clone().requires_grad_(True)
-        ra.roi_align_sum(maps32, rois, *args, bias=b32).backward(g32)
-        want32, want_b = ra.roi_align_sum_backward_plain(g32, shapes, rois, *args, True)
-        torch.cuda.synchronize()
-        for m, w in zip(maps32, want32):
-            e = (m.grad - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-            err32 = max(err32, e)
-        eb = (b32.grad - want_b).abs().max().item() / want_b.abs().max().item()
-        # bf16, as the train step runs it
-        g16 = g32.bfloat16()
-        maps_b = [m.clone().requires_grad_(True) for m in maps16]
-        ra.roi_align_sum(maps_b, rois, *args, bias=bias).backward(g16)
-        ref, _ = ra.roi_align_sum_backward_plain(g16.float(), shapes, rois, *args, True)
-        # the same bits from every call: twice more in each type
-        for grads, g in (([m.grad for m in maps32] + [b32.grad], g32),
-                         ([m.grad for m in maps_b], g16)):
-            for _ in range(2):
-                again, again_b = ra.roi_align_sum_backward(g, shapes, rois, *args, True)
-                if not all(torch.equal(a, w) for a, w in zip(again + [again_b], grads)):
-                    raise AssertionError(f"K4 backward at a train-step call ({g.dtype}): two "
-                                         f"calls on the same inputs differ")
-        torch.cuda.synchronize()
-        e16 = 0.0
-        for m, w in zip(maps_b, ref):
-            scale = w.abs().max().item()
-            e16 = max(e16, (m.grad.float() - w).abs().max().item() / scale)
-        if err32 > 1e-4 or eb > 1e-4 or e16 > 2.0 ** -7:
-            raise AssertionError(f"K4 backward at the train step's shapes: f32 err {err32} (of "
-                                 f"each map's scale), bias {eb}, bf16 err {e16}")
+        out_size = args[1]
+        g16, errs = _check_k4_train_call(maps16, rois, bias, args, "train (e)")
+        err32, eb, e16 = max(err32, errs["bwd32"]), errs["bias"], errs["bwd16"]
         err16 = max(err16, e16)
         t_f = cuda_ms(lambda: ra.roi_align_sum(maps16, rois, *args, bias=bias))
         t_b = cuda_ms(lambda: ra.roi_align_sum_backward(g16, shapes, rois, *args, True))
@@ -1771,7 +1843,9 @@ def phase_train(device, tmp, ctx):
         tot["ff"], tot["fb"] = tot["ff"] + ff, tot["fb"] + fbytes
         tot["bf"], tot["bb"] = tot["bf"] + bf, tot["bb"] + bbytes
         log(f"K4 at a train-step call (B{rois.shape[0]} R{rois.shape[1]} out {out_size}, maps "
-            f"{[s[1:3] for s in shapes]}): backward f32 err {err32:.2e} of the gradient scale "
+            f"{[s[1:3] for s in shapes]}): forward f32 err {errs['fwd32']:.2e}, bf16 "
+            f"{errs['fwd16']:.5f} of the summed magnitudes; backward f32 err {err32:.2e} of the "
+            f"gradient scale "
             f"(bias {eb:.2e}), bf16 {e16:.5f} (allowed {2.0 ** -7:.5f}), bit-equal over 3 calls "
             f"in each type; forward {t_f:.3f} ms "
             f"(plain {t_pf:.3f}), backward {t_b:.3f} ms (plain autograd {t_pb:.3f})")
@@ -2804,6 +2878,199 @@ def phase_backbones(device, tmp, ctx):
     return dict(backbones=unet_counts, extractors=extract_counts, golden=golden_counts)
 
 
+BENCH_ARGS = ("--max-iter", "20", "--log-interval", "10", "--repeat-num", "2")
+BENCH_FORWARDS = 2 * (5 + 20)  # repeats × (the tool's 5 warm-up forwards + max-iter)
+BENCH_WSI_TILES = 64  # the slide of benchmark_wsi; 2 passes of 4 forwards at B16
+SUMMARY_TILES = 16  # of that slide, through infer_wsi for wsi_throughput_summary
+BENCH_TRAIN_STEPS = 1 + 10  # benchmark_train's warm step and its timed steps
+
+
+def phase_benchmark(device, tmp, ctx):
+    """The benchmark tools and ``utils.profiling`` at full width on the
+    PanNuke config, bf16, on phase_eval's seed-0 weights with the objectness
+    lifted (``ctx["ckpt"]``). (a) ``analysis_tools.benchmark.main`` at B16,
+    BENCH_ARGS, Swin tier "block" (the strict path): img/s finite and > 0, 12
+    K1, 4 K4 and ≥ 1 K3 launches a forward. (b) ``benchmark_wsi`` on its
+    synthetic slide of BENCH_WSI_TILES tiles, written as a PNG and read by
+    ``ImageReader``, the WSI-mode engine at B16, two passes
+    (``benchmark_slide``): every tile processed, nuclei > 0, the four parts
+    within the wall, the same launches a forward. (f)
+    ``profiling.trace("run_batch", log_dir)`` around one ``run_batch`` of
+    that engine: the Chrome trace holds the span and, for K1's 12 launches
+    (read from the counter), 12 ``window_attn_kernel`` and 12
+    ``block_mlp_kernel`` events, or, for each one it lacks, a kernel launch
+    record whose kernel record the profiler dropped (late in this script
+    the trace lacks ~1 % of its kernel records; run alone, none). (c) ``benchmark_train.main`` at B = 8: every
+    metric finite, 4 K4, 4 K4-backward, ≥ 1 K3 and no Swin kernel launch a
+    step; ms/step; K4 and K4's backward at the warm step's four calls
+    against their plain versions on the same inputs
+    (``_check_k4_train_call``, phase_train (e)'s bounds). (d) ``get_flops.main`` at 512², B1, on the card and on
+    the CPU: the same three counts on both, the parameters equal to the
+    engine model's, both GFLOPs > 0. (e) ``tools.infer_wsi.main`` (stage A
+    timed, stage B on SUMMARY_TILES of (b)'s tiles; the patch grid passed
+    in memory, no h5py) and ``misc.wsi_throughput_summary.main`` over its
+    save directory: each nuclei line the feature count of its GeoJSON, each
+    mean line the mean of its CSV column. Returns the launches of (a), (b)
+    and (c)."""
+    import csv
+    import statistics
+
+    import torch
+    from nuhtc_tpu_torch.apis.inference import init_detector
+    from nuhtc_tpu_torch.tools import infer_wsi
+    from nuhtc_tpu_torch.tools.analysis_tools import (
+        benchmark, benchmark_train, benchmark_wsi, get_flops)
+    from nuhtc_tpu_torch.tools.misc import wsi_throughput_summary
+    from nuhtc_tpu_torch.utils import profiling
+    from nuhtc_tpu_torch.utils.imageio import write_png
+    from nuhtc_tpu_torch.wsi.slide import ImageReader
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    fps = benchmark.main([CONFIG, ctx["ckpt"], "--batch-size", str(BATCH), *BENCH_ARGS,
+                          "--device", str(device)])
+    bench_counts = read_counts()
+    check_counts("benchmark (a)", bench_counts, BENCH_FORWARDS, "window_block")
+    if len(fps) != 2 or not all(np.isfinite(f) and f > 0 for f in fps):
+        raise AssertionError(f"benchmark (a): img/s {fps}")
+    log(f"benchmark (a) analysis_tools.benchmark B{BATCH} {' '.join(BENCH_ARGS)}: img/s "
+        f"{[round(f, 2) for f in fps]}, mean {np.mean(fps):.2f}; launches {bench_counts}")
+
+    src, out = os.path.join(tmp, "bench_slide"), os.path.join(tmp, "bench_out")
+    os.makedirs(src)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    img, coords = benchmark_wsi.synthetic_benchmark_slide(BENCH_WSI_TILES)
+    write_png(os.path.join(src, "synth.png"), img)
+    slide = ImageReader(os.path.join(src, "synth.png"))
+    t_slide = time.perf_counter() - t0
+    engine = init_detector(CONFIG, ctx["ckpt"], batch_size=BATCH, device_preprocess=True,
+                           compact_masks=True)
+    reset_counts()
+    stats, warm = benchmark_wsi.benchmark_slide(engine, slide, coords, out, True)
+    wsi_counts = read_counts()
+    check_counts("benchmark_wsi (b)", wsi_counts, 2 * -(-BENCH_WSI_TILES // BATCH),
+                 "window_block")
+    parts = [stats[k] for k in benchmark_wsi.PARTS]
+    if (stats["tiles"] != BENCH_WSI_TILES or stats["nuclei"] <= 0 or min(parts) < 0
+            or sum(parts) > stats["seconds"]):
+        raise AssertionError(f"benchmark_wsi (b): {stats}")
+    log(f"benchmark_wsi (b) {img.shape[0]}x{img.shape[1]} slide written and read in "
+        f"{t_slide:.2f} s; timed pass {stats['tiles']} tiles, {stats['nuclei']} nuclei, "
+        f"{stats['seconds']:.3f} s = {stats['tiles_per_sec']:.2f} tiles/s (first pass "
+        f"{warm:.3f} s): read_wait {stats['read_wait_s']:.3f}, dispatch {stats['dispatch_s']:.3f},"
+        f" collect {stats['collect_s']:.3f} (device wait {stats['collect_device_s']:.3f}, "
+        f"download {stats['collect_download_s']:.3f}), post {stats['post_s']:.3f} s; launches "
+        f"{wsi_counts}")
+
+    trace_dir = os.path.join(tmp, "bench_trace")
+    tiles = [slide.read_region((int(x), int(y)), 0, (TILE, TILE)) for x, y in coords[:BATCH]]
+    reset_counts()
+    with profiling.trace("run_batch", log_dir=trace_dir):
+        engine.run_batch(tiles)
+    trace_counts = read_counts()
+    with open(os.path.join(trace_dir, "run_batch.pt.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "run_batch"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "block_mlp_kernel" in e.get("name", "")]
+    k1_attn = [e for e in kern if "window_attn_kernel" in e.get("name", "")]
+    # a launch record without its kernel record is one the profiler
+    # dropped; the earliest kernel start less its launch shows whether the
+    # device's clock ran ahead of the host's
+    launch = {e.get("args", {}).get("correlation"): e for e in events
+              if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")}
+    ids = {e.get("args", {}).get("correlation") for e in kern}
+    lost = [c for c in launch if c not in ids]
+    skew = min((e["ts"] - launch[e["args"]["correlation"]]["ts"] for e in kern
+                if e.get("args", {}).get("correlation") in launch), default=float("nan"))
+    short = 24 - len(k1) - len(k1_attn)
+    if (not spans or trace_counts["window_block"] != 12 or len(k1) > 12 or len(k1_attn) > 12
+            or short > len(lost)):
+        raise AssertionError(
+            f"profiling (f): {len(spans)} run_batch spans; {trace_counts['window_block']} K1 "
+            f"launches, {len(k1)} block_mlp_kernel and {len(k1_attn)} window_attn_kernel "
+            f"events (12 each wanted) of {len(kern)} kernel events; {len(lost)} kernel "
+            f"launches without a kernel event")
+    log(f"profiling (f) trace('run_batch'): {len(events)} events, {len(kern)} kernel events, "
+        f"the span {max(e.get('dur', 0) for e in spans) / 1e3:.3f} ms; K1's 12 launches as "
+        f"{len(k1_attn)} window_attn_kernel + {len(k1)} block_mlp_kernel events of "
+        f"{np.mean([e['dur'] for e in k1_attn]) / 1e3:.3f} + "
+        f"{np.mean([e['dur'] for e in k1]) / 1e3:.3f} ms mean; {len(lost)} kernel launches "
+        f"whose kernel record the profiler dropped ({short} of them K1's); the earliest "
+        f"kernel start less its launch {skew / 1e3:.3f} ms")
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    del engine
+
+    os.environ["B"] = str(TRAIN_BATCH)
+    captured = []
+    try:
+        reset_counts()
+        with _capture_k4_calls(captured):
+            res = benchmark_train.main(["--device", str(device)])
+        train_counts = read_counts()
+    finally:
+        del os.environ["B"]
+    steps = BENCH_TRAIN_STEPS
+    if (train_counts["roi_align"] != 4 * steps or train_counts["roi_align_backward"] != 4 * steps
+            or train_counts["component_stats"] < steps or train_counts["window_block"]
+            or train_counts["window_attention"]):
+        raise AssertionError(f"benchmark_train (c): launches {train_counts} over {steps} steps")
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"benchmark_train (c): {res}")
+    if len(captured) != 4:
+        raise AssertionError(f"benchmark_train (c): captured {len(captured)} K4 calls of a step")
+    errs = [_check_k4_train_call(*call, "benchmark_train (c)")[1] for call in captured]
+    worst = {k: max(e[k] for e in errs) for k in errs[0]}
+    log(f"benchmark_train (c) B{TRAIN_BATCH} 256², bf16 autocast: {res['ms_per_step']:.1f} "
+        f"ms/step, {res['tiles_per_s']:.2f} tiles/s, total loss {res['total']:.4f}; launches "
+        f"{train_counts} over {steps} steps; K4 at the warm step's 4 calls "
+        f"({', '.join(f'R{c[1].shape[1]} out {c[3][1]} maps {[tuple(m.shape[1:3]) for m in c[0]]}' for c in captured)}) "
+        f"against the plain versions: forward f32 {worst['fwd32']:.2e}, bf16 "
+        f"{worst['fwd16']:.5f} of the summed magnitudes; backward f32 {worst['bwd32']:.2e} "
+        f"(bias {worst['bias']:.2e}), bf16 {worst['bwd16']:.5f} of the gradient scale, "
+        f"bit-equal over 3 calls")
+
+    t0 = time.perf_counter()
+    flops = {dev: get_flops.main([CONFIG, "--shape", "512", "--batch", "1", "--device", dev])
+             for dev in (str(device), "cpu")}
+    card, cpu = flops[str(device)], flops["cpu"]
+    if card != cpu or card["params"] != n_params or min(card.values()) <= 0:
+        raise AssertionError(f"get_flops (d): card {card}, CPU {cpu}, the engine's "
+                             f"parameters {n_params}")
+    log(f"get_flops (d) 512² B1 on the card and the CPU in {time.perf_counter() - t0:.1f} s: "
+        f"{card['params']} parameters, backbone+FPN {card['feats_flops']} FLOPs, full "
+        f"{card['full_flops']} FLOPs (FlopCounterMode: products only), equal on both")
+
+    t0 = time.perf_counter()
+    save = os.path.join(tmp, "bench_wsi_save")
+    _captured(lambda argv: infer_wsi.main(argv, coords={"synth": coords[:SUMMARY_TILES]}),
+              [src, CONFIG, ctx["ckpt"], "--no_auto_skip", "--save_dir", save,
+               "--device", str(device)])
+    text = _captured(wsi_throughput_summary.main, [save])
+    with open(os.path.join(save, "process_list_autogen.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    want = [f"mean {col}: {statistics.mean(float(r[col]) for r in rows if r[col]):.2f}"
+            for col in ("seg_time", "patch_time", "n_patches") if col in rows[0]]
+    gj_dir = os.path.join(save, "nuclei", "synth")
+    names = sorted(n for n in os.listdir(gj_dir) if n.endswith(".geojson")
+                   and "_point" not in n and "_merged" not in n)
+    for name in names:
+        with open(os.path.join(gj_dir, name)) as f:
+            doc = json.load(f)
+        want.append(f"{name:<40s} {len(doc['features'] if isinstance(doc, dict) else doc):>8d} "
+                    f"nuclei")
+    lines = text.splitlines()
+    if len(want) != 3 + len(names) or not names or lines[-len(want):] != want:
+        raise AssertionError(f"wsi_throughput_summary (e): printed {lines[-len(want):]}, "
+                             f"expected {want}")
+    log(f"wsi_throughput_summary (e) over infer_wsi's save directory ({SUMMARY_TILES} tiles) "
+        f"in {time.perf_counter() - t0:.1f} s: the mean and nuclei lines as computed here")
+    torch.cuda.synchronize()
+    log(f"benchmark: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(benchmark=bench_counts, benchmark_wsi=wsi_counts, benchmark_train=train_counts)
+
+
 SEMI_CONFIG = os.path.join(REPO, "configs", "nuhtc", "semi_base.py")
 SEMI_SPLITS = (("train", 16), ("unlabeled", 16), ("test", 8))  # tiles of the NuCLS release
 SEMI_ITERS = 3  # steps an epoch of phase_semi
@@ -3289,11 +3556,12 @@ def main() -> int:
         train_configs = phase_train_configs(device, tmp, context)
         variants, _ = phase_variants(device, tmp, context)
         backbones = phase_backbones(device, tmp, context)
+        bench = phase_benchmark(device, tmp, context)
     with tempfile.TemporaryDirectory() as tmp:
         semi_serve, semi_train = phase_semi(device, tmp)
     paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
                  robustness=robustness, train=train, train_configs=train_configs,
-                 **parallel, **variants, **backbones, semi_serve=semi_serve,
+                 **parallel, **variants, **backbones, **bench, semi_serve=semi_serve,
                  semi_train=semi_train)
 
     def entry(name, source, replaces, measured):

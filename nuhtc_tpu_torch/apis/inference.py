@@ -110,18 +110,14 @@ class InferenceEngine:
             x = torch.nn.functional.pad(x, (0, 0, 0, size - rs, 0, size - rs))
         return x.to(self.dtype)
 
-    def dispatch(self, imgs: Sequence[np.ndarray]):
-        """Upload and enqueue the forward; returns device tensors. Host-side
-        syncs inside the proposal stages (NMS and component fixpoints) make
-        this partly blocking on the card."""
-        n = len(imgs)
-        if self.device_preprocess:
-            batch, hs, ws = self.preprocess_u8(imgs)
-            x = torch.from_numpy(batch).to(self.device, non_blocking=True)
-            x = self._prep(x, torch.from_numpy(hs).to(self.device),
-                           torch.from_numpy(ws).to(self.device))
-        else:
-            x = torch.from_numpy(self.preprocess(imgs)).to(self.device).to(self.dtype)
+    def forward(self, x: torch.Tensor):
+        """The model and the paste on a batch already on the device, in the
+        model's input layout and dtype: (B, input_size, input_size, 3),
+        normalized and padded → (det, pasted), device tensors. With compact
+        masks ``det`` holds the label maps and ``pasted`` is None; without,
+        ``pasted`` holds each detection's full-frame mask when the engine
+        pastes. Host-side syncs inside the proposal stages (NMS and
+        component fixpoints) make this partly blocking on the card."""
         det = self.model(x)
         t = self.tile_size
         thr = self.model.mask_thr_binary
@@ -133,6 +129,20 @@ class InferenceEngine:
             # per image: (D, 28, 28) probs + boxes in the tile frame → (D, t, t) u8
             pasted = torch.stack([paste_fn(m, b, (t, t), threshold=thr)
                                   for m, b in zip(det["mask_probs"], det["boxes"])])
+        return det, pasted
+
+    def dispatch(self, imgs: Sequence[np.ndarray]):
+        """Upload and enqueue the forward (``forward``); returns device
+        tensors."""
+        n = len(imgs)
+        if self.device_preprocess:
+            batch, hs, ws = self.preprocess_u8(imgs)
+            x = torch.from_numpy(batch).to(self.device, non_blocking=True)
+            x = self._prep(x, torch.from_numpy(hs).to(self.device),
+                           torch.from_numpy(ws).to(self.device))
+        else:
+            x = torch.from_numpy(self.preprocess(imgs)).to(self.device).to(self.dtype)
+        det, pasted = self.forward(x)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

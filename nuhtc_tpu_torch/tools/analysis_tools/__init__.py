@@ -3,10 +3,11 @@ package), each run as ``python -m nuhtc_tpu_torch.tools.analysis_tools.<name>``
 with the JAX script's arguments: ``eval_metric``, ``print_metric``,
 ``print_metric_all``, ``confusion_matrix``, ``coco_error_analysis``,
 ``analyze_results``, ``interrater_analysis``, ``robustness_eval``,
-``test_robustness`` (the only one that runs the detector; ``--device``),
+``test_robustness`` (it runs the detector; ``--device``),
 ``viz_utils`` and the per-dataset suites ``pannuke.compute_stats``,
 ``pannuke.compute_stats_all``, ``conic.compute_stats`` and
-``consep.compute_stats``.
+``consep.compute_stats``; and the benchmark tools ``benchmark``,
+``benchmark_wsi``, ``benchmark_train`` and ``get_flops`` (``--device``).
 
 matplotlib draws the figures of ``confusion_matrix`` and
 ``coco_error_analysis``; it is imported only where a figure is drawn, after

@@ -57,6 +57,7 @@ from nuhtc_tpu_torch.tools.dataset import convert_format
 from nuhtc_tpu_torch.tools.synthetic import synthetic_pannuke
 from nuhtc_tpu_torch.utils.imageio import read_image
 from test_torch_dataset import shared_results
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE_CFG = os.path.join(REPO, "configs", "nuhtc", "htc_lite_tiny_synthetic.py")

@@ -40,6 +40,7 @@ from nuhtc_tpu_torch.models.swin import SwinTransformer  # noqa: F401
 from nuhtc_tpu_torch.registry import BACKBONES, NECKS
 from nuhtc_tpu_torch.utils.convert import state_dict_from_jax
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REL = 1e-4
 # patch 2 over a 28² pretrain image: the 14² grid of ViTDet's 224 / 16

@@ -17,6 +17,7 @@ from nuhtc_tpu.ops import components as jc
 from nuhtc_tpu.ops.components_pallas import boxes_from_roots_pallas_batched
 from nuhtc_tpu_torch.ops import components as tc
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 SIZE = 64
 

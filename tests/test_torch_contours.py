@@ -15,6 +15,7 @@ from scipy import ndimage
 
 from nuhtc_tpu_torch.ops import contours as C
 from nuhtc_tpu_torch.ops import imgproc as I
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 MODES = [(cv2.RETR_TREE, cv2.CHAIN_APPROX_SIMPLE), (cv2.RETR_CCOMP, cv2.CHAIN_APPROX_NONE),
          (cv2.RETR_TREE, cv2.CHAIN_APPROX_NONE), (cv2.RETR_CCOMP, cv2.CHAIN_APPROX_SIMPLE)]

@@ -25,6 +25,7 @@ from nuhtc_tpu.utils.checkpoint import convert_torch_state_dict, map_torch_key
 from nuhtc_tpu_torch.models.detector import NuHTC
 from nuhtc_tpu_torch.utils.convert import state_dict_from_jax, torch_key
 from torch_oracle import OracleArch, build_full_sd
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BACKBONE = dict(embed_dims=32, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8))

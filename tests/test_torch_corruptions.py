@@ -30,6 +30,7 @@ from nuhtc_tpu.data import pipelines as jax_pipelines
 from nuhtc_tpu_torch.data import pipelines
 from nuhtc_tpu_torch.ops import imgproc as I
 from nuhtc_tpu_torch.ops.contours import circle
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 F2D_DFT_TOL = 4e-7  # float32 filter2d with ≥ 130 taps against cv2's DFT, values in [0, 1]
 F2D_DFT_U8_SHARE = 1e-3  # uint8 filter2d with ≥ 130 taps: share of values 1 level off

@@ -58,6 +58,7 @@ from nuhtc_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_train_step import _batch, assert_losses_match, run_both
 from torch_oracle import match_detections
 from torch_port_util import blob_tiles, f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CONFIG = "configs/nuhtc/htc_lite_tiny_synthetic.py"
 CUS = "HybridTaskCascadeRoIHead_Cus"

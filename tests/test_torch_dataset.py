@@ -46,6 +46,7 @@ from nuhtc_tpu_torch.tools import preprocess_pannuke
 from nuhtc_tpu_torch.tools.synthetic import synthetic_pannuke
 from nuhtc_tpu_torch.utils.imageio import read_gray, read_image
 from nuhtc_tpu_torch.utils.visualize import draw_detections
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -44,6 +44,7 @@ from nuhtc_tpu_torch.ops.mask_paste import paste_masks
 from nuhtc_tpu_torch.utils.convert import state_dict_from_jax
 from torch_oracle import OracleArch, apply_sd, build_full_sd, match_detections
 from torch_port_util import blob_tiles, f32, n, port_sd, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CONFIG = "configs/nuhtc/htc_lite_tiny_synthetic.py"
 TILE = 48

@@ -19,6 +19,7 @@ from nuhtc_tpu.eval import stats as j_stats
 from nuhtc_tpu.ops import rle as j_rle
 from nuhtc_tpu_torch.eval import coco_map, interrater, nucls, stats
 from nuhtc_tpu_torch.ops import rle
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 
 def label_map(rng, size, count, shift=(0, 0), holes=True):

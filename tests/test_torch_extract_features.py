@@ -32,6 +32,7 @@ from nuhtc_tpu_torch.tools.synthetic import synthetic_slide
 from nuhtc_tpu_torch.wsi.slide import ArraySlide
 from torch_oracle import OracleArch, build_full_sd
 from torch_port_util import f32
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "nuhtc", "htc_lite_tiny_synthetic.py")

@@ -40,6 +40,7 @@ from nuhtc_tpu_torch.tools import wsi_feat_extract as wfe
 from nuhtc_tpu_torch.tools.synthetic import synthetic_slide, synthetic_tiles
 from nuhtc_tpu_torch.wsi import features as P
 from nuhtc_tpu_torch.wsi import stain
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ELLIPSE_COLUMNS = ("major_axis_length", "minor_axis_length", "minor_major_axis_ratio",

@@ -54,6 +54,7 @@ from nuhtc_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_cus import SIDE, shared_models
 from test_torch_train_step import _batch, assert_losses_match, run_both
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 FUSE = "HybridTaskCascadeRoIHead_Lite_Fuse"
 TOL = 1e-4

@@ -30,6 +30,7 @@ from nuhtc_tpu_torch.models.rpn_head import RPNHead, rpn_proposals
 from nuhtc_tpu_torch.ops import nms as tnms
 from nuhtc_tpu_torch.ops.roi_align import roi_align
 from torch_port_util import f32, n, port_sd, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 ATOL = 1e-4
 C = 16

@@ -22,6 +22,7 @@ import pytest
 from nuhtc_tpu.wsi import heatmap as J
 from nuhtc_tpu_torch.tools.synthetic import slide_and_grid
 from nuhtc_tpu_torch.wsi import heatmap as P
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 matplotlib.use("Agg")
 

@@ -30,6 +30,7 @@ from nuhtc_tpu_torch.ops.roi_align import (
 from nuhtc_tpu_torch.ops.window_block import (
     BlockParams, bias_fragments, window_attention, window_attention_plain, window_block, window_block_plain,
 )
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 _NAMES = ("wqkv", "bqkv", "wproj", "bproj", "bias49", "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
 

@@ -44,6 +44,7 @@ from nuhtc_tpu_torch.ops.contours import ellipse
 from nuhtc_tpu_torch.tools.analysis_tools import analyze_logs, analyze_wsi_logs, optimize_anchors
 from nuhtc_tpu_torch.tools.misc import browse_dataset, make_synthetic_pannuke, run_e2e_golden
 from nuhtc_tpu_torch.utils.imageio import read_png
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ from nuhtc_tpu_torch.train import samplers as S
 from nuhtc_tpu_torch.train import targets as T
 from test_torch_train_step import assert_losses_match, run_both, shared_setup
 from torch_port_util import n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 RTOL = 1e-6
 

@@ -68,6 +68,7 @@ from nuhtc_tpu_torch.utils.convert import state_dict_from_jax, torch_key
 from test_torch_train_step import _Draws
 from torch_oracle import match_detections
 from torch_port_util import blob_tiles, f32, n, port_sd, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 SEMI_CONFIG = "configs/nuhtc/semi_base.py"
 TINY_BACKBONE = dict(embed_dims=32, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8), window_size=7,

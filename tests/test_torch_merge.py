@@ -18,6 +18,7 @@ import pytest
 from nuhtc_tpu.wsi import merge as J
 from nuhtc_tpu_torch.tools import nuclei_merge as cli
 from nuhtc_tpu_torch.wsi import merge as P
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -96,6 +96,7 @@ from torch_oracle import OracleArch, apply_sd, build_full_sd
 from torch_parallel_util import (
     CONFIG, SIDE, STEP_LR, Draws, blob_batch, fsdp_rank, pair_rank,
 )
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 LOSS_RTOL = GRAD_TOL = 1e-4
 DROP_RTOL = 1e-5

@@ -49,6 +49,7 @@ from nuhtc_tpu_torch.utils.visualize import VIRIDIS_U8, apply_viridis
 from test_torch_dataset import run_jax_tool
 from torch_oracle import OracleArch, build_full_sd, match_detections
 from torch_port_util import f32
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "configs", "nuhtc", "htc_lite_tiny_synthetic.py")

@@ -31,6 +31,7 @@ import torch
 from nuhtc_tpu_torch.apis.inference import InferenceEngine
 from nuhtc_tpu_torch.tools.analysis_tools import test_robustness
 from test_torch_patch_tools import CFG, assert_one_to_one, run_jax, world  # noqa: F401
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 ARGS = ["--corruptions", "gaussian_noise", "elastic_transform", "--severities", "0", "1",
         "--limit", "4"]

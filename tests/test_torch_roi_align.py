@@ -33,6 +33,7 @@ from nuhtc_tpu_torch.ops.roi_align import (
     attention_pool, roi_align, roi_align_plain, roi_align_sum, roi_align_sum_plain,
 )
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 ATOL = 1e-4
 MODES = {

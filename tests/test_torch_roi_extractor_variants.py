@@ -30,6 +30,7 @@ from nuhtc_tpu_torch.models.roi_extractor_variants import (
 )
 from nuhtc_tpu_torch.ops import roi_align as ra
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 ATOL = 1e-4
 STRIDES = (4, 8, 16, 32)

@@ -65,6 +65,7 @@ from test_torch_mask_rcnn import (B, SIDE, TINY, TINY_BACKBONE, _eager_mask_targ
                                   exact_rois, tiny_pair)
 from test_torch_train_step import TOY_LEAVES, _Draws, _PortToy, _tree
 from torch_port_util import n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 SEMI_CONFIG = "configs/nuhtc/semi_base.py"
 

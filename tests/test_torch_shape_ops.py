@@ -24,6 +24,7 @@ import pytest
 
 from nuhtc_tpu_torch.ops import contours as C
 from nuhtc_tpu_torch.ops import imgproc as I
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 
 def _rings(rng, h, w, margin, count):

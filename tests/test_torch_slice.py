@@ -19,6 +19,7 @@ from nuhtc_tpu_torch.apis.inference import init_detector
 from nuhtc_tpu_torch.utils.convert import state_dict_from_jax
 from torch_oracle import OracleArch, apply_sd, build_full_sd, match_detections
 from torch_port_util import blob_tiles, f32
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CONFIG = "configs/nuhtc/htc_lite_tiny_synthetic.py"
 TILE = 64

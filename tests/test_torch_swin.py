@@ -28,6 +28,7 @@ from nuhtc_tpu_torch.models import swin as port_swin
 from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops.window_block import window_block, window_block_plain
 from torch_port_util import f32, n, port_sd, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CFG = dict(embed_dims=16, depths=(2, 2), num_heads=(2, 4), window_size=4)
 

@@ -53,6 +53,7 @@ from nuhtc_tpu_torch.data import pipelines as tp
 from nuhtc_tpu_torch.data.coco import build_dataset
 from nuhtc_tpu_torch.tools import preprocess_pannuke
 from nuhtc_tpu_torch.tools.synthetic import synthetic_nucls, synthetic_pannuke
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 PANNUKE = "configs/nuhtc/htc_lite_swin_fpn_pannuke.py"
 EXACT_CORRUPTIONS = [n for n in tp.CORRUPTIONS if n not in ("jpeg_compression", "snow")]

@@ -54,6 +54,7 @@ from nuhtc_tpu_torch.train import train_state as TS
 from nuhtc_tpu_torch.utils.convert import state_dict_from_jax, torch_key
 from torch_oracle import OracleArch, apply_sd, build_full_sd
 from torch_port_util import f32, n, t
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CONFIG = "configs/nuhtc/htc_lite_tiny_synthetic.py"
 SIDE, B, G = 64, 2, 10

@@ -34,6 +34,7 @@ from nuhtc_tpu_torch.tools.synthetic import synthetic_pannuke
 from nuhtc_tpu_torch.train.train_state import frozen_mask
 from nuhtc_tpu_torch.train.trainer import Trainer
 from nuhtc_tpu_torch.utils import checkpoint as ckpt
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 CONFIG = "configs/nuhtc/htc_lite_tiny_synthetic.py"
 LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_semantic_seg", "s0.loss_cls", "s0.loss_obj",

@@ -46,6 +46,7 @@ from nuhtc_tpu_torch.utils import imageio
 from nuhtc_tpu_torch.wsi import infer, stitch, tissue
 from nuhtc_tpu_torch.wsi.export import NucleiExporter, random_colors
 from nuhtc_tpu_torch.wsi.slide import ArraySlide, ImageReader, open_slide
+import torch_threads  # noqa: F401  (torch's threads: the host's cores over the workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("A", "B", "C", "D", "E")
