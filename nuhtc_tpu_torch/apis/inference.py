@@ -20,7 +20,6 @@ augmentation on top of an engine.
 from __future__ import annotations
 
 import re
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +30,7 @@ from nuhtc_tpu_torch.data.pipelines import IMG_NORM, preprocess_test_image
 from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
 from nuhtc_tpu_torch.ops.components import resize_half_pixel
 from nuhtc_tpu_torch.ops.mask_paste import paste_label_map, paste_masks as paste_fn
+from nuhtc_tpu_torch.utils.profiling import span
 
 
 class InferenceEngine:
@@ -122,49 +122,56 @@ class InferenceEngine:
         t = self.tile_size
         thr = self.model.mask_thr_binary
         pasted = None
-        if self.compact_masks:
-            det["label_map"] = paste_label_map(det.pop("mask_probs"), det["boxes"], det["valid"],
-                                               (t, t), threshold=thr)
-        elif self.paste_masks:
-            # per image: (D, 28, 28) probs + boxes in the tile frame → (D, t, t) u8
-            pasted = torch.stack([paste_fn(m, b, (t, t), threshold=thr)
-                                  for m, b in zip(det["mask_probs"], det["boxes"])])
+        with span("engine.paste"):
+            if self.compact_masks:
+                det["label_map"] = paste_label_map(det.pop("mask_probs"), det["boxes"],
+                                                   det["valid"], (t, t), threshold=thr)
+            elif self.paste_masks:
+                # per image: (D, 28, 28) probs + boxes in the tile frame → (D, t, t) u8
+                pasted = torch.stack([paste_fn(m, b, (t, t), threshold=thr)
+                                      for m, b in zip(det["mask_probs"], det["boxes"])])
         return det, pasted
 
     def dispatch(self, imgs: Sequence[np.ndarray]):
         """Upload and enqueue the forward (``forward``); returns device
         tensors."""
-        n = len(imgs)
-        if self.device_preprocess:
-            batch, hs, ws = self.preprocess_u8(imgs)
-            x = torch.from_numpy(batch).to(self.device, non_blocking=True)
-            x = self._prep(x, torch.from_numpy(hs).to(self.device),
-                           torch.from_numpy(ws).to(self.device))
-        else:
-            x = torch.from_numpy(self.preprocess(imgs)).to(self.device).to(self.dtype)
-        det, pasted = self.forward(x)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return det, pasted, n, done
+        with span("engine.dispatch"):
+            n = len(imgs)
+            if self.device_preprocess:
+                with span("engine.upload"):
+                    batch, hs, ws = self.preprocess_u8(imgs)
+                    x = torch.from_numpy(batch).to(self.device, non_blocking=True)
+                    hs = torch.from_numpy(hs).to(self.device)
+                    ws = torch.from_numpy(ws).to(self.device)
+                with span("engine.prep"):
+                    x = self._prep(x, hs, ws)
+            else:
+                with span("engine.upload"):
+                    x = torch.from_numpy(self.preprocess(imgs)).to(self.device).to(self.dtype)
+            with span("engine.forward"):
+                det, pasted = self.forward(x)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            return det, pasted, n, done
 
     def collect(self, handle) -> List[Dict[str, np.ndarray]]:
         det, pasted, n, done = handle
-        # 1) device wait, apart from 2) the bulk download
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-        t1 = time.perf_counter()
-        if pasted is not None:
-            pasted = pasted.cpu().numpy()
-        # masks come back in the pasted tensor: the raw probs stay behind
-        det = {k: v.float().cpu().numpy() if v.dtype == torch.bfloat16 else v.cpu().numpy()
-               for k, v in det.items() if not (k == "mask_probs" and pasted is not None)}
-        t2 = time.perf_counter()
-        self.collect_timing["device_s"] += t1 - t0
-        self.collect_timing["download_s"] += t2 - t1
-        return self._split_results(det, pasted, n)
+        with span("engine.collect"):
+            # 1) device wait, apart from 2) the bulk download
+            with span("engine.wait", self.collect_timing, "device_s"):
+                if done is not None:
+                    done.synchronize()
+            with span("engine.download", self.collect_timing, "download_s"):
+                if pasted is not None:
+                    pasted = pasted.cpu().numpy()
+                # masks come back in the pasted tensor: the raw probs stay behind
+                det = {k: v.float().cpu().numpy() if v.dtype == torch.bfloat16
+                       else v.cpu().numpy()
+                       for k, v in det.items() if not (k == "mask_probs" and pasted is not None)}
+            with span("engine.split"):
+                return self._split_results(det, pasted, n)
 
     def run_batch(self, imgs: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Per-image dicts: boxes (n, 4) in the tile frame, scores, labels,

@@ -56,6 +56,7 @@ from nuhtc_tpu_torch.ops.watershed import watershed_segmentation
 from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.train import samplers as S
 from nuhtc_tpu_torch.train import targets as T
+from nuhtc_tpu_torch.utils.profiling import span
 
 # per-stage DeltaXYWH stds (reference config)
 STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1), (0.033, 0.033, 0.067, 0.067))
@@ -202,7 +203,10 @@ class NuHTC(nn.Module):
     @torch.no_grad()
     def extract_feats(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C) each."""
-        return tuple(self.neck(self.backbone(img)))
+        with span("model.backbone"):
+            x = self.backbone(img)
+        with span("model.neck"):
+            return tuple(self.neck(x))
 
     @torch.no_grad()
     def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -216,26 +220,31 @@ class NuHTC(nn.Module):
         # cascade stage hands these maps to the RoIAlign kernel
         feats = tuple(f.contiguous() for f in self.extract_feats(img))
 
-        cls_scores, bbox_preds = self.rpn_head(feats)
-        prop_boxes, _, prop_valid = rpn_proposals(
-            cls_scores, bbox_preds, img_shape, strides=self.strides,
-            nms_pre=self.rpn_nms_pre, max_per_img=self.rpn_max_per_img,
-            nms_iou=self.rpn_nms_iou, min_bbox_size=self.rpn_min_bbox_size)
+        with span("model.rpn_head"):
+            cls_scores, bbox_preds = self.rpn_head(feats)
+        with span("model.rpn_proposals"):
+            prop_boxes, _, prop_valid = rpn_proposals(
+                cls_scores, bbox_preds, img_shape, strides=self.strides,
+                nms_pre=self.rpn_nms_pre, max_per_img=self.rpn_max_per_img,
+                nms_iou=self.rpn_nms_iou, min_bbox_size=self.rpn_min_bbox_size)
 
-        semantic_logits, semantic_feat = self.roi_head.semantic_head(feats)
-        semantic_feat = semantic_feat.contiguous()
+        with span("model.semantic"):
+            semantic_logits, semantic_feat = self.roi_head.semantic_head(feats)
+            semantic_feat = semantic_feat.contiguous()
         rois, rois_valid = prop_boxes, prop_valid
         if self.watershed_proposal:
-            ws_boxes5, ws_valid = component_proposals_batched(
-                semantic_logits[..., 0], img_shape, max_components=self.watershed_max,
-                min_area=self.watershed_min_area)
+            with span("model.components"):
+                ws_boxes5, ws_valid = component_proposals_batched(
+                    semantic_logits[..., 0], img_shape, max_components=self.watershed_max,
+                    min_area=self.watershed_min_area)
             rois = torch.cat([ws_boxes5[..., :4], prop_boxes], dim=1)
             rois_valid = torch.cat([ws_valid, prop_valid], dim=1)
 
         ms_scores = []
         bbox_pred = None
         for stage in range(self.num_stages):
-            cls_score, bbox_pred = self._bbox_stage(stage, feats, semantic_feat, rois)
+            with span("model.bbox_stage"):
+                cls_score, bbox_pred = self._bbox_stage(stage, feats, semantic_feat, rois)
             ms_scores.append(cls_score)
             if stage < self.num_stages - 1:
                 rois = box_ops.delta2bbox(rois, bbox_pred, stds=STAGE_STDS[stage],
@@ -243,9 +252,11 @@ class NuHTC(nn.Module):
         scores_act = seesaw_activation(sum(ms_scores) / float(len(ms_scores)))
         bboxes = box_ops.delta2bbox(rois, bbox_pred, stds=STAGE_STDS[self.num_stages - 1],
                                     max_shape=img_shape)
-        det = self._multiclass_nms(bboxes / self.scale_factor, scores_act, rois_valid)
-        det["mask_probs"] = self._mask_forward(feats, semantic_feat,
-                                               det["boxes"] * self.scale_factor)
+        with span("model.multiclass_nms"):
+            det = self._multiclass_nms(bboxes / self.scale_factor, scores_act, rois_valid)
+        with span("model.mask_head"):
+            det["mask_probs"] = self._mask_forward(feats, semantic_feat,
+                                                   det["boxes"] * self.scale_factor)
         return det
 
     @torch.no_grad()

@@ -45,6 +45,7 @@ from nuhtc_tpu_torch.ops.anchors import grid_anchors
 from nuhtc_tpu_torch.parallel import mesh as P
 from nuhtc_tpu_torch.registry import DETECTORS
 from nuhtc_tpu_torch.train import targets as T
+from nuhtc_tpu_torch.utils.profiling import span
 
 BBOX_STDS = (0.1, 0.1, 0.2, 0.2)  # faster/mask-rcnn defaults
 # train recipe (mmdet faster/mask-rcnn defaults; fixed in the JAX package)
@@ -97,7 +98,10 @@ class MaskRCNN(nn.Module):
         """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C)
         each, contiguous (the RoI kernel reads them); ``generator`` draws the
         backbone's stochastic depth in training mode."""
-        return tuple(f.contiguous() for f in self.neck(self.backbone(img, generator)))
+        with span("model.backbone"):
+            x = self.backbone(img, generator)
+        with span("model.neck"):
+            return tuple(f.contiguous() for f in self.neck(x))
 
     def mid_seg_logits(self, img: torch.Tensor, feat0: torch.Tensor) -> torch.Tensor:
         """Level 0 pixel-shuffled to the image's size (einops 'b (p1 p2 c) h
@@ -134,22 +138,28 @@ class MaskRCNN(nn.Module):
         b, h, w, _ = img.shape
         img_shape = (h, w)
         feats = self.features(img)
-        cls_scores, bbox_preds = self.rpn_head(feats)
-        prop_boxes, _, prop_valid = rpn_proposals(
-            cls_scores, bbox_preds, img_shape, strides=self.strides, scales=(self.anchor_scale,),
-            nms_pre=self.rpn_nms_pre, max_per_img=self.rpn_max_per_img, nms_iou=self.rpn_nms_iou,
-            min_bbox_size=self.rpn_min_bbox_size)
-        cls, reg = self._roi_forward(feats, prop_boxes)
+        with span("model.rpn_head"):
+            cls_scores, bbox_preds = self.rpn_head(feats)
+        with span("model.rpn_proposals"):
+            prop_boxes, _, prop_valid = rpn_proposals(
+                cls_scores, bbox_preds, img_shape, strides=self.strides,
+                scales=(self.anchor_scale,), nms_pre=self.rpn_nms_pre,
+                max_per_img=self.rpn_max_per_img, nms_iou=self.rpn_nms_iou,
+                min_bbox_size=self.rpn_min_bbox_size)
+        with span("model.bbox_stage"):
+            cls, reg = self._roi_forward(feats, prop_boxes)
         scores = torch.softmax(cls, dim=-1)  # (B, P, C+1)
         p, c = prop_boxes.shape[1], self.num_classes
         rois_pc = prop_boxes[:, :, None, :].expand(b, p, c, 4)
         boxes_pc = box_ops.delta2bbox(rois_pc, reg.reshape(b, p, c, 4), stds=BBOX_STDS,
                                       max_shape=img_shape)
-        det = self._multiclass_nms(boxes_pc / self.scale_factor, scores, prop_valid)
-        mask_logits = self._mask_forward(feats, det["boxes"] * self.scale_factor)
-        lbl = det["labels"].clamp(0, c - 1).long()
-        sel = mask_logits.gather(-1, lbl[:, :, None, None, None].expand(-1, -1, 28, 28, 1))
-        det["mask_probs"] = torch.sigmoid(sel[..., 0])
+        with span("model.multiclass_nms"):
+            det = self._multiclass_nms(boxes_pc / self.scale_factor, scores, prop_valid)
+        with span("model.mask_head"):
+            mask_logits = self._mask_forward(feats, det["boxes"] * self.scale_factor)
+            lbl = det["labels"].clamp(0, c - 1).long()
+            sel = mask_logits.gather(-1, lbl[:, :, None, None, None].expand(-1, -1, 28, 28, 1))
+            det["mask_probs"] = torch.sigmoid(sel[..., 0])
         return det
 
     def _multiclass_nms(self, boxes_pc, scores, valid) -> Dict[str, torch.Tensor]:

@@ -21,6 +21,7 @@ import torch
 
 from nuhtc_tpu_torch.ops import morphology
 from nuhtc_tpu_torch.ops.morphology import SWEEPS, shift
+from nuhtc_tpu_torch.utils.profiling import count
 
 BIG = 1e9  # extent of an id that owns no pixel
 
@@ -64,6 +65,7 @@ def label_components_raw(mask: torch.Tensor, max_iters: int = 24, inner: int = 8
         for dim, rev in SWEEPS:
             lab = _sweep_min(lab, mask, dim, rev, big)
     for _ in range(max_iters):
+        count("components.rounds")
         lab2 = _propagate_min(lab, mask, big, inner)
         if torch.equal(lab2, lab):
             break

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from nuhtc_tpu_torch.ops.boxes import pairwise_iou
+from nuhtc_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e10
 
@@ -37,6 +38,7 @@ def nms_keep_sorted(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: flo
         ov[:, rows] = ((iou > iou_threshold) & (rows[:, None] < cols[None, :])).to(dt)
     keep = valid
     for _ in range(n):
+        count("nms.rounds")
         sup = (keep.to(dt)[:, None, :] @ ov)[:, 0] > 0
         new = valid & ~sup
         if torch.equal(new, keep):

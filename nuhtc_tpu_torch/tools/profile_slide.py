@@ -8,9 +8,15 @@ weights from a seed, ``mode="all"``) over the synthetic slide of
 library (``ops.rle.NATIVE``), ``--repeats`` times each in turn, and prints
 for every run the wall time, tiles/s, ``infer_slide``'s own attribution
 (read_wait / dispatch / collect with its device wait and download / post)
-and, inside ``post``, the seconds of RLE encoding, mask NMS, contour tracing
-and export, taken by wrapping those four calls. All times are the host's
-clock; the card's name and power limit are printed first.
+and, from a ``utils.profiling.trace`` of the run, each span's host time,
+self time and device idle (``profiling.span_table``): ``wsi.read_wait``, the
+engine's ``engine.dispatch`` and ``engine.collect`` with their children,
+``wsi.post`` with ``wsi.filter``, ``wsi.rle``, ``wsi.mask_nms``,
+``wsi.contours`` and ``wsi.export`` (``exporter.close`` too), ``wsi.slide``'s
+self time; the detections entering post and the nuclei leaving it; the
+device idle in no span, and the device records that start before their
+launch (0 when the clocks agree). All runs are traced. The card's name and
+power limit are printed first.
 """
 
 from __future__ import annotations
@@ -20,18 +26,6 @@ import json
 import os
 import subprocess
 import tempfile
-import time
-
-
-
-def _timed(bucket: dict, key: str, fn):
-    def wrapper(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            bucket[key] = bucket.get(key, 0.0) + time.perf_counter() - t0
-    return wrapper
 
 
 def main(argv=None) -> int:
@@ -47,8 +41,8 @@ def main(argv=None) -> int:
     from nuhtc_tpu_torch.data.classes import dataset_classes
     from nuhtc_tpu_torch.ops import rle
     from nuhtc_tpu_torch.tools.synthetic import lift_objectness, slide_and_grid
+    from nuhtc_tpu_torch.utils import profiling
     from nuhtc_tpu_torch.wsi import infer
-    from nuhtc_tpu_torch.wsi.export import NucleiExporter
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -64,27 +58,27 @@ def main(argv=None) -> int:
                       for x, y in coords[:args.batch_size]])  # warm-up
     torch.cuda.synchronize()
 
-    inside: dict = {}
-    plain = (infer.rle_ops.encode, infer.mask_nms, infer.find_contours, NucleiExporter.add_tile)
-    infer.rle_ops.encode = _timed(inside, "rle_encode_s", plain[0])
-    infer.mask_nms = _timed(inside, "mask_nms_s", plain[1])
-    infer.find_contours = _timed(inside, "contours_s", plain[2])
-    NucleiExporter.add_tile = _timed(inside, "export_s", plain[3])
     try:
         for rep in range(args.repeats):
             for native in (False, True):
                 rle.NATIVE = native
-                inside.clear()
                 with tempfile.TemporaryDirectory() as out_dir:
-                    stats = infer.infer_slide(engine, slide, coords, out_dir, "slide",
-                                              dataset_classes("PanNukeCocoDataset"), mode="all",
-                                              progress=False)
+                    with profiling.trace("slide", log_dir=out_dir):
+                        stats = infer.infer_slide(engine, slide, coords, out_dir, "slide",
+                                                  dataset_classes("PanNukeCocoDataset"),
+                                                  mode="all", progress=False)
+                    with open(os.path.join(out_dir, "slide.pt.trace.json")) as f:
+                        table = profiling.span_table(json.load(f)["traceEvents"], "slide")
+                spans = {k: {m: round(float(v), 4) for m, v in row.items()}
+                         for k, row in table["spans"].items()}
                 print(json.dumps(dict(run=rep, rle="C library" if native else "numpy",
                                       **{k: round(float(v), 4) for k, v in stats.items()},
-                                      **{k: round(v, 4) for k, v in inside.items()})), flush=True)
+                                      counters=dict(profiling.COUNTERS), spans=spans,
+                                      idle_s=round(table["idle_s"], 4),
+                                      uncovered_idle_s=round(table["uncovered_idle_s"], 4),
+                                      early_starts=table["early_starts"])), flush=True)
     finally:
         rle.NATIVE = None
-        infer.rle_ops.encode, infer.mask_nms, infer.find_contours, NucleiExporter.add_tile = plain
     return 0
 
 

@@ -7,9 +7,8 @@ config and the CPU. Where a JAX tool would build or compile its full-width
 model, the test patches the names it calls (in the test, through
 ``monkeypatch``) so that it records its inputs and stops.
 
-- ``profiling``: ``Timer`` and ``ThroughputMeter`` of both packages under
-  one patched ``time.perf_counter``: equal laps, report strings and rates;
-  ``trace`` on the CPU writes a Chrome trace that holds the span.
+- ``profiling``: ``trace`` on the CPU writes a Chrome trace that holds the
+  span (the port's spans and counters: ``test_torch_spans.py``).
 - ``benchmark``: the port's random batches equal the JAX tool's exactly;
   ``measure_inference_speed`` on the tiny engine calls ``engine.forward``
   warmup + max_iter times and prints the JAX function's lines, byte for
@@ -46,7 +45,6 @@ import nuhtc_tpu.train.train_state  # noqa: F401
 import nuhtc_tpu.utils.cache
 import nuhtc_tpu.wsi.infer
 import nuhtc_tpu.wsi.slide
-from nuhtc_tpu.utils import profiling as jax_profiling
 from nuhtc_tpu_torch import __version__
 from nuhtc_tpu_torch.apis.inference import init_detector
 from nuhtc_tpu_torch.tools.analysis_tools import (
@@ -72,41 +70,10 @@ def _script(rel: str):
     return mod
 
 
-def _fake_clock(monkeypatch, ticks):
-    """``time.perf_counter`` returns the next of ``ticks``."""
-    it = iter(ticks)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(it))
-
-
 def test_version_is_the_jax_packages():
     from nuhtc_tpu.version import __version__ as jax_version
 
     assert __version__ == jax_version == "0.1.0"
-
-
-def test_timer_and_meter_equal_jax(monkeypatch):
-    ticks = [0.0, 0.125, 0.5, 0.75, 1.5, 2.0, 3.25, 3.5, 4.0, 4.125, 7.5, 9.0]
-    laps = ["read", "forward", "read", "post", "forward"]
-    out = []
-    for mod in (jax_profiling, profiling):
-        _fake_clock(monkeypatch, ticks)
-        timer = mod.Timer()
-        dts = [timer.lap(name) for name in laps]
-        out.append((dts, dict(timer.laps), timer.report()))
-    assert out[0] == out[1]
-    assert out[1][2] == ("total 3.250s | read: 0.375s (12%) | forward: 0.875s (27%) | "
-                         "post: 0.750s (23%)")
-    rates = []
-    for mod in (jax_profiling, profiling):
-        _fake_clock(monkeypatch, ticks)
-        meter = mod.ThroughputMeter(window=4)
-        seen = [meter.rate]
-        for n in (16, 16, 8, 16, 16, 4, 16):
-            meter.update(n)
-            seen.append(meter.rate)
-        rates.append((seen, list(meter.counts), list(meter.times)))
-    assert rates[0] == rates[1]
-    assert rates[1][1] == [16, 16, 4, 16]
 
 
 def test_trace_writes_the_span_on_the_cpu(tmp_path):
