@@ -7,8 +7,8 @@
  * where the reference depends on pycocotools' C maskApi; a fresh
  * implementation, with no code taken from pycocotools.
  *
- * Build (done at first use by nuhtc_tpu_torch/ops/rle.py):
- *   cc -O2 -shared -fPIC rle.c -o librle.so
+ * Build (done at first use by nuhtc_tpu_torch/ops/rle.py, with contours.c):
+ *   cc -O2 -shared -fPIC rle.c contours.c -o libhost.so
  */
 
 #include <stdint.h>

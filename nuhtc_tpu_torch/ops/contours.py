@@ -1,11 +1,13 @@
-"""Contour geometry in numpy, equal to OpenCV's on integer inputs.
+"""Contour geometry in numpy and C, equal to OpenCV's on integer inputs.
 
 The whole-slide path of the JAX package leans on OpenCV for a handful of
 geometric functions. The port carries its own, each written to give the
 result ``cv2`` (5.0.0) gives, point for point:
 
-- ``find_contours``: border following after Suzuki and Abe (1985) with
-  OpenCV's conventions: the image is padded by a zero frame (so pixels on
+- ``find_contours``: border following after Suzuki and Abe (1985), in
+  the host C library (``csrc/contours.c``, built with ``ops/rle.py``'s) or,
+  where no C compiler is installed, in Python (``find_contours_plain``),
+  with OpenCV's conventions: the image is padded by a zero frame (so pixels on
   the image's edge are foreground like any other), an outer border starts at
   its first pixel in raster order and runs counter-clockwise on the screen
   (down first), a hole border starts at the pixel left of the hole's first
@@ -37,6 +39,9 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from nuhtc_tpu_torch.ops.rle import native_library
+from nuhtc_tpu_torch.utils.profiling import count
 
 # the values OpenCV gives these names
 RETR_EXTERNAL = 0
@@ -100,9 +105,64 @@ def find_contours(mask: np.ndarray, mode: int = RETR_TREE, method: int = CHAIN_A
     Returns (contours, hierarchy): a list of (P, 1, 2) int32 arrays of
     (x, y) points and a (1, N, 4) int32 array of [next, previous, first
     child, parent] indices, or ``([], None)`` when the mask is empty. Any
-    non-zero pixel is foreground."""
+    non-zero pixel is foreground.
+
+    The host C library (``csrc/contours.c``) follows the borders and orders
+    the tree where ``ops.rle.NATIVE`` gives one, else ``find_contours_plain``
+    does; the counters ``contours.native`` and ``contours.plain`` count the
+    calls each took."""
+    mask = _checked(mask, mode, method)
+    lib = native_library()
+    if lib is None:
+        count("contours.plain")
+        return _find_plain(mask, mode, method)
+    count("contours.native")
+    if mask.dtype != np.uint8 and mask.dtype != np.bool_:
+        mask = mask != 0
+    mask = np.ascontiguousarray(mask)
+    h, w = mask.shape
+    cap = 2 + 5 * 64 + 1 + 2 * (4 * (h + w) + 64)
+    while True:  # twice at most: the second time with the room the first asked for
+        out = np.empty(cap, np.int32)
+        rc = lib.contours_find(mask.ctypes.data, h, w, mode, method == CHAIN_APPROX_SIMPLE,
+                               out.ctypes.data, cap)
+        if rc < 0:
+            raise MemoryError(f"contours_find: out of memory on a {h}x{w} mask")
+        n, p = int(out[0]), int(out[1])
+        if rc == 0:
+            break
+        cap = 2 + 5 * n + 1 + 2 * p
+    if n == 0:
+        return [], None
+    offsets = out[2 + 4 * n:3 + 5 * n].tolist()
+    pts = out[3 + 5 * n:3 + 5 * n + 2 * p].reshape(-1, 1, 2)
+    return ([pts[a:b] for a, b in zip(offsets, offsets[1:])],
+            out[2:2 + 4 * n].reshape(1, n, 4))
+
+
+def find_contours_plain(mask: np.ndarray, mode: int = RETR_TREE,
+                        method: int = CHAIN_APPROX_SIMPLE,
+                        ) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
+    """``find_contours`` in Python: the fallback where no C compiler is
+    installed, and what the library is held to."""
+    return _find_plain(_checked(mask, mode, method), mode, method)
+
+
+def _checked(mask, mode: int, method: int) -> np.ndarray:
+    if mode not in (RETR_EXTERNAL, RETR_CCOMP, RETR_TREE):
+        raise ValueError(f"find_contours: mode {mode} is not RETR_EXTERNAL, RETR_CCOMP or "
+                         "RETR_TREE")
+    if method not in (CHAIN_APPROX_NONE, CHAIN_APPROX_SIMPLE):
+        raise ValueError(f"find_contours: method {method} is not CHAIN_APPROX_NONE or _SIMPLE")
+    mask = np.asarray(mask)
+    if mask.ndim != 2:
+        raise ValueError(f"find_contours takes a 2-D mask, got shape {mask.shape}")
+    return mask
+
+
+def _find_plain(mask: np.ndarray, mode: int, method: int):
     if mode == RETR_EXTERNAL:
-        found, tree = find_contours(mask, RETR_TREE, method)
+        found, tree = _find_plain(mask, RETR_TREE, method)
         if tree is None:
             return found, tree
         top = [i for i in range(len(found)) if tree[0, i, 3] == -1]
@@ -111,14 +171,6 @@ def find_contours(mask: np.ndarray, mode: int = RETR_TREE, method: int = CHAIN_A
         hierarchy[0, :, 0] = np.where(np.arange(k) + 1 < k, np.arange(k) + 1, -1)
         hierarchy[0, :, 1] = np.arange(k) - 1
         return [found[i] for i in top], hierarchy
-    if mode not in (RETR_CCOMP, RETR_TREE):
-        raise ValueError(f"find_contours: mode {mode} is not RETR_EXTERNAL, RETR_CCOMP or "
-                         "RETR_TREE")
-    if method not in (CHAIN_APPROX_NONE, CHAIN_APPROX_SIMPLE):
-        raise ValueError(f"find_contours: method {method} is not CHAIN_APPROX_NONE or _SIMPLE")
-    mask = np.asarray(mask)
-    if mask.ndim != 2:
-        raise ValueError(f"find_contours takes a 2-D mask, got shape {mask.shape}")
     fg = mask != 0
     rows = np.flatnonzero(fg.any(1))
     if len(rows) == 0:

@@ -2,15 +2,17 @@
 
 Equivalents of the pycocotools.mask functions the engine, the slide path and
 the evaluation use (encode/decode/area/toBbox/iou/merge), implemented from
-the RLE format spec: in numpy (the plain version, ``*_plain``), and in a
-small C library (``csrc/rle.c``) that the host's C compiler builds at first
-use into ``build/nuhtc_tpu_torch/``. Both give the same results.
+the RLE format spec: in numpy (the plain version, ``*_plain``), and in the
+port's small host C library (``csrc/rle.c``, with ``csrc/contours.c``, the
+border tracer of ``ops/contours.py``) that the host's C compiler builds at
+first use into ``build/nuhtc_tpu_torch/``. Both give the same results.
 
-Which one runs is ``NATIVE``'s say: ``None`` (the default) takes the library
-wherever a C compiler is installed and numpy where there is none; ``True``
-requires the library; ``False`` is numpy only. A compiler that is there and
-fails raises with its output in every mode but ``False``: a broken build is
-never passed over.
+Which one runs is ``NATIVE``'s say, for the RLE functions and the contour
+tracer alike: ``None`` (the default) takes the library wherever a C compiler
+is installed and the Python code where there is none; ``True`` requires the
+library; ``False`` is Python only. A compiler that is there and fails raises
+with its output in every mode but ``False``: a broken build is never passed
+over.
 
 RLE dict format matches pycocotools: {"size": [h, w], "counts": bytes}.
 """
@@ -29,6 +31,7 @@ import numpy as np
 
 NATIVE: Optional[bool] = None
 _COMPILERS = ("cc", "gcc", "clang")
+HOST_SOURCES = ("rle.c", "contours.c")  # under csrc/, one library
 _lib_cache: Dict[str, ctypes.CDLL] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -39,14 +42,16 @@ _I64 = ctypes.c_int64
 
 
 def _build_library() -> str:
-    """Compiles csrc/rle.c unless a library for this source exists; returns
-    its path, or "" when no C compiler is installed."""
+    """Compiles the host library's C sources unless a library for them
+    exists; returns its path, or "" when no C compiler is installed."""
     from nuhtc_tpu_torch.kernels import BUILD_DIR, CSRC
 
-    src = os.path.join(CSRC, "rle.c")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"librle_{digest}.so")
+    srcs = [os.path.join(CSRC, name) for name in HOST_SOURCES]
+    h = hashlib.sha256()
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"libhost_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path
     cc = next((c for c in map(shutil.which, _COMPILERS) if c), None)
@@ -54,25 +59,25 @@ def _build_library() -> str:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        out = os.path.join(tmp, "librle.so")
-        res = subprocess.run([cc, "-O2", "-shared", "-fPIC", src, "-o", out],
+        out = os.path.join(tmp, "libhost.so")
+        res = subprocess.run([cc, "-O2", "-shared", "-fPIC", *srcs, "-o", out],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"{cc} failed to build {src} ({res.returncode}):\n"
+            raise RuntimeError(f"{cc} failed to build {', '.join(srcs)} ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
         os.replace(out, path)
     return path
 
 
 def native_library() -> Optional[ctypes.CDLL]:
-    """The C library as ``NATIVE`` asks for it, or None for the numpy code."""
+    """The C library as ``NATIVE`` asks for it, or None for the Python code."""
     if NATIVE is False:
         return None
     if "lib" not in _lib_cache:
         path = _build_library()
         if not path:
             if NATIVE:
-                raise RuntimeError(f"the native RLE library was asked for and no C compiler "
+                raise RuntimeError(f"the native host library was asked for and no C compiler "
                                    f"({', '.join(_COMPILERS)}) is installed")
             return None
         lib = ctypes.CDLL(path)
@@ -86,6 +91,9 @@ def native_library() -> Optional[ctypes.CDLL]:
         lib.rle_string_encode.argtypes = [_U32P, _I64, ctypes.c_char_p, _I64]
         lib.rle_string_decode.restype = _I64
         lib.rle_string_decode.argtypes = [ctypes.c_char_p, _I64, _U32P, _I64]
+        lib.contours_find.restype = _I64
+        lib.contours_find.argtypes = [ctypes.c_void_p, _I64, _I64, ctypes.c_int32,
+                                      ctypes.c_int32, ctypes.c_void_p, _I64]
         _lib_cache["lib"] = lib
     return _lib_cache["lib"]
 

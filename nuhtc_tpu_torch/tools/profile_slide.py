@@ -4,8 +4,9 @@
 
 Drives ``wsi.infer.infer_slide`` (WSI mode, PanNuke config, B16, bf16, random
 weights from a seed, ``mode="all"``) over the synthetic slide of
-``tools/synthetic.py``, once with the numpy RLE code and once with the C
-library (``ops.rle.NATIVE``), ``--repeats`` times each in turn, and prints
+``tools/synthetic.py``, once with the numpy RLE code and the Python contour
+tracer and once with the host C library (``ops.rle.NATIVE``), ``--repeats``
+times each in turn, and prints
 for every run the wall time, tiles/s, ``infer_slide``'s own attribution
 (read_wait / dispatch / collect with its device wait and download / post)
 and, from a ``utils.profiling.trace`` of the run, each span's host time,
@@ -71,7 +72,7 @@ def main(argv=None) -> int:
                         table = profiling.span_table(json.load(f)["traceEvents"], "slide")
                 spans = {k: {m: round(float(v), 4) for m, v in row.items()}
                          for k, row in table["spans"].items()}
-                print(json.dumps(dict(run=rep, rle="C library" if native else "numpy",
+                print(json.dumps(dict(run=rep, host="C library" if native else "Python",
                                       **{k: round(float(v), 4) for k, v in stats.items()},
                                       counters=dict(profiling.COUNTERS), spans=spans,
                                       idle_s=round(table["idle_s"], 4),

@@ -19,6 +19,30 @@ import torch_threads  # noqa: F401  (torch's threads: the host's cores over the 
 
 MODES = [(cv2.RETR_TREE, cv2.CHAIN_APPROX_SIMPLE), (cv2.RETR_CCOMP, cv2.CHAIN_APPROX_NONE),
          (cv2.RETR_TREE, cv2.CHAIN_APPROX_NONE), (cv2.RETR_CCOMP, cv2.CHAIN_APPROX_SIMPLE)]
+EXTERNAL = [(cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE), (cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_NONE)]
+
+
+@pytest.fixture
+def native(monkeypatch):
+    """``find_contours`` on the host C library: required, never the Python
+    fallback."""
+    from nuhtc_tpu_torch.ops import rle
+
+    monkeypatch.setattr(rle, "NATIVE", True)
+    assert rle.native_library() is not None
+
+
+def _assert_same(got, got_h, want, want_h):
+    """Equal contours and hierarchy: same order, points, start, way round, dtypes."""
+    assert len(got) == len(want)
+    if want_h is None:
+        assert got_h is None
+        return
+    np.testing.assert_array_equal(got_h, want_h)  # order, siblings, children, parents
+    assert got_h.dtype == want_h.dtype
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape  # (P, 1, 2) int32
+        np.testing.assert_array_equal(g, w)  # same points from the same start, same way round
 
 
 def _disc(shape, cx, cy, r):
@@ -69,24 +93,22 @@ def _zoo():
 ZOO = _zoo()
 
 
-@pytest.mark.parametrize("mode,method", MODES)
+@pytest.mark.parametrize("mode,method", MODES + EXTERNAL)
 @pytest.mark.parametrize("name", sorted(ZOO))
-def test_find_contours_equals_cv2(name, mode, method):
+def test_find_contours_equals_cv2(name, mode, method, native):
     mask = ZOO[name].astype(np.uint8)
-    want, want_h = cv2.findContours(mask, mode, method)
-    got, got_h = C.find_contours(mask, mode, method)
-    assert len(got) == len(want)
-    if want_h is None:
-        assert got_h is None
-        return
-    np.testing.assert_array_equal(got_h, want_h)  # order, siblings, children, parents
-    assert got_h.dtype == want_h.dtype
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape  # (P, 1, 2) int32
-        np.testing.assert_array_equal(g, w)  # same points from the same start, same way round
+    _assert_same(*C.find_contours(mask, mode, method), *cv2.findContours(mask, mode, method))
 
 
-def test_find_contours_first_contour_is_the_last_found():
+@pytest.mark.parametrize("mode,method", MODES + EXTERNAL)
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_find_contours_plain_equals_cv2(name, mode, method):
+    mask = ZOO[name].astype(np.uint8)
+    _assert_same(*C.find_contours_plain(mask, mode, method),
+                 *cv2.findContours(mask, mode, method))
+
+
+def test_find_contours_first_contour_is_the_last_found(native):
     """``postprocess_tile`` reads ``found[0]`` only: with a stray pixel below
     a nucleus that is the pixel's 1-point contour, and the detection is
     dropped by the ``len(cont) < 3`` rule."""
@@ -107,23 +129,114 @@ def test_find_contours_first_contour_is_the_last_found():
         C.find_contours(big, method=cv2.CHAIN_APPROX_TC89_L1)
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_find_contours_equals_cv2_on_random_masks(seed):
+def _random_masks_equal_cv2(find, seed):
     rng = np.random.RandomState(seed)
     total = 0
     for _ in range(40):
         h, w = rng.randint(1, 40, 2)
         mask = (rng.rand(h, w) < rng.choice([0.2, 0.5, 0.8, 0.95])).astype(np.uint8)
         for mode, method in MODES[:2]:
-            want, want_h = cv2.findContours(mask, mode, method)
-            got, got_h = C.find_contours(mask, mode, method)
-            assert len(got) == len(want)
-            if want_h is not None:
-                np.testing.assert_array_equal(got_h, want_h)
-            for g, w_ in zip(got, want):
-                np.testing.assert_array_equal(g, w_)
-            total += len(got)
+            got = find(mask, mode, method)
+            _assert_same(*got, *cv2.findContours(mask, mode, method))
+            total += len(got[0])
     assert total > 500
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_find_contours_equals_cv2_on_random_masks(seed, native):
+    _random_masks_equal_cv2(C.find_contours, seed)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_find_contours_plain_equals_cv2_on_random_masks(seed):
+    _random_masks_equal_cv2(C.find_contours_plain, seed)
+
+
+def _ragged(rng, h, w):
+    """Thresholded smooth noise (components, holes, holes in holes) with
+    single pixels, one-pixel-wide lines and foreground on the image's edges."""
+    m = ndimage.gaussian_filter(rng.rand(h, w), rng.uniform(0.6, 2.5))
+    m = m > np.quantile(m, rng.uniform(0.2, 0.8))
+    for _ in range(rng.randint(0, 6)):
+        m[rng.randint(h), rng.randint(w)] ^= True
+    y, x = rng.randint(h), rng.randint(w)
+    n = rng.randint(2, max(3, min(h, w)))
+    m[y, x:x + n] = True  # a horizontal line
+    m[y:y + n, x] = True  # and a vertical one from the same pixel
+    d = np.arange(min(n, h - y, w - x))
+    m[y + d, x + d] = True  # a diagonal
+    for side in rng.choice(4, rng.randint(1, 5), replace=False):
+        edge = (m[0], m[-1], m[:, 0], m[:, -1])[side]
+        edge[rng.rand(len(edge)) < 0.5] = True
+    return m.astype(np.uint8)
+
+
+def test_native_tracer_equals_plain_on_ragged_masks(native):
+    """200 seeded ragged masks, every mode: the library and the Python
+    tracer give the same contours and hierarchy (and so does cv2)."""
+    rng = np.random.RandomState(19)
+    borders = holes = 0
+    for _ in range(200):
+        mask = _ragged(rng, *rng.randint(2, 72, 2))
+        for mode, method in MODES + EXTERNAL:
+            got = C.find_contours(mask, mode, method)
+            _assert_same(*got, *C.find_contours_plain(mask, mode, method))
+            _assert_same(*got, *cv2.findContours(mask, mode, method))
+            if mode == cv2.RETR_CCOMP:
+                borders += len(got[0])
+                holes += int((got[1][0, :, 3] >= 0).sum())
+    assert borders > 5000 and holes > 1000
+
+
+def test_native_tracer_at_the_slide_shape(native):
+    """256² masks as the slide cell's detections give them: a roughened
+    blob of the benchmark traffic's size anywhere in the tile, at times with
+    a fragment or a stray pixel beside it; and a bool copy of each."""
+    rng = np.random.RandomState(256)
+    yy, xx = np.mgrid[:256, :256]
+    for _ in range(64):
+        cy, cx = rng.randint(-8, 264, 2)
+        r2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        rough = ndimage.gaussian_filter(rng.rand(256, 256), 1.2) * 60
+        mask = r2 + rough < 150 + 30
+        if rng.rand() < 0.5:
+            mask |= ((yy - cy - 14) ** 2 + (xx - cx + 9) ** 2 + rough) < 40
+        if rng.rand() < 0.5:
+            mask[rng.randint(256), rng.randint(256)] = True
+        for m in (mask.astype(np.uint8), mask):
+            got = C.find_contours(m)
+            _assert_same(*got, *C.find_contours_plain(m))
+            _assert_same(*got, *cv2.findContours(m.astype(np.uint8), cv2.RETR_TREE,
+                                                  cv2.CHAIN_APPROX_SIMPLE))
+
+
+def test_native_tracer_reads_any_dtype_and_layout(native):
+    """The library reads uint8 and bool masks in place and any other dtype
+    or layout through a copy: empty shapes, ints, floats, Fortran order,
+    reversed and strided views all give the Python tracer's contours."""
+    base = _ragged(np.random.RandomState(5), 23, 31)
+    masks = [np.zeros((0, 5), np.uint8), np.zeros((5, 0), bool), base.astype(np.int64) * 7,
+             base * 0.5, np.asfortranarray(base), base.astype(bool)[::-1, ::2],
+             base[:, 3:-2]]
+    for mask in masks:
+        for mode, method in MODES + EXTERNAL:
+            _assert_same(*C.find_contours(mask, mode, method),
+                         *C.find_contours_plain(mask, mode, method))
+
+
+def test_native_tracer_on_a_thumbnail(native):
+    """A 2000 × 1500 binarized thumbnail as ``wsi/tissue.py`` traces it
+    (``RETR_CCOMP``, ``CHAIN_APPROX_NONE``): large regions, holes, specks;
+    a 0/255 uint8 mask and an int32 one read alike."""
+    rng = np.random.RandomState(2000)
+    thumb = ndimage.zoom(rng.rand(60, 45), (2000 / 60, 1500 / 45), order=1)
+    thumb = ((thumb + 0.08 * rng.rand(2000, 1500)) > 0.55).astype(np.uint8) * 255
+    got = C.find_contours(thumb, C.RETR_CCOMP, C.CHAIN_APPROX_NONE)
+    assert len(got[0]) > 50 and sum(len(c) for c in got[0]) > 20000
+    _assert_same(*got, *C.find_contours_plain(thumb, C.RETR_CCOMP, C.CHAIN_APPROX_NONE))
+    _assert_same(*got, *cv2.findContours(thumb, cv2.RETR_CCOMP, cv2.CHAIN_APPROX_NONE))
+    _assert_same(*C.find_contours(thumb.astype(np.int32), C.RETR_CCOMP, C.CHAIN_APPROX_NONE),
+                 *got)
 
 
 @pytest.mark.parametrize("method", [cv2.CHAIN_APPROX_NONE, cv2.CHAIN_APPROX_SIMPLE])

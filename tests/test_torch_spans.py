@@ -11,7 +11,9 @@ that detections exist) and a tiny ``ArraySlide``:
 - ``infer_slide``: its returned keys unchanged, its timers equal to the
   spans that take them, the ``wsi.*`` spans nested as documented,
   ``wsi.detections`` and ``wsi.nuclei`` equal to the detections entering
-  post and the nuclei returned;
+  post and the nuclei returned, every mask kept traced in the host library;
+- ``contours.native`` and ``contours.plain``: the masks traced by each
+  path, read by ``slide.contours_native_share``;
 - ``nms.rounds`` on a suppression chain of k boxes: k rounds (k - 1 that
   change the keep set, one that finds it fixed);
 - ``span_table`` on synthetic traces: self time under nested spans, device
@@ -189,6 +191,9 @@ def test_slide_spans_counts_and_timers(engines, tmp_path, monkeypatch):
     assert sec["wsi.slide"] >= stats["seconds"]
     assert profiling.COUNTERS["wsi.detections"] == sum(entering) > 0
     assert profiling.COUNTERS["wsi.nuclei"] == stats["nuclei"]
+    # every mask NMS kept was traced once, in the host library
+    assert profiling.COUNTERS["contours.native"] >= stats["nuclei"]
+    assert "contours.plain" not in profiling.COUNTERS
     got = [(n, p) for n, p in _spans_with_parents(events, "slide")
            if n.startswith("wsi.") or p == "wsi.slide"]
     want_parent = {"wsi.read_wait": "wsi.slide", "engine.dispatch": "wsi.slide",
@@ -206,6 +211,23 @@ def test_slide_spans_counts_and_timers(engines, tmp_path, monkeypatch):
     assert [p for n, p in got if n == "wsi.export"][-1] == "wsi.slide"
     for name in ("wsi.filter", "wsi.rle", "wsi.mask_nms", "wsi.contours"):
         assert 1 <= names.count(name) <= 5
+
+
+@pytest.mark.parametrize("native,plain,want", [(45, 0, 100.0), (3, 1, 75.0), (0, 7, 0.0),
+                                                (0, 0, None), (None, None, None)])
+def test_contours_native_share_reads_the_counters(native, plain, want, monkeypatch):
+    """``slide.contours_native_share``: 100 · ``contours.native`` over both
+    counters of the traced segment; None where nothing was traced, and None
+    from a program without the span registry."""
+    from portbench.harness.common import metric_reader
+
+    read = metric_reader("slide.contours_native_share")
+    counters = {k: v for k, v in (("contours.native", native), ("contours.plain", plain)) if v}
+    monkeypatch.setattr(profiling, "SECONDS", {"engine.dispatch": 1.0})
+    monkeypatch.setattr(profiling, "COUNTERS", counters)
+    if native is None:
+        monkeypatch.delattr(profiling, "COUNTERS")
+    assert read({"trace": {"tiles": 64}}) == want
 
 
 def _chain(k: int):

@@ -220,12 +220,20 @@ def _disc(cx, cy, r):
 
 
 def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
-    """``csrc/rle.c`` through ``ops.rle`` against the numpy code: exactly
-    equal. A build that was asked for and cannot be made raises."""
+    """``csrc/rle.c`` through ``ops.rle`` against the numpy code, and
+    ``csrc/contours.c`` through ``find_contours`` against the Python tracer:
+    exactly equal, each call counted by the path it took. ``NATIVE=False``
+    traces in Python. A build that was asked for and cannot be made raises."""
     import shutil
 
     from nuhtc_tpu_torch import kernels
-    from nuhtc_tpu_torch.ops import rle
+    from nuhtc_tpu_torch.ops import contours, rle
+    from nuhtc_tpu_torch.utils import profiling
+
+    def traced(mask):
+        with profiling.spans():
+            found = contours.find_contours(mask)
+            return found, dict(profiling.COUNTERS)
 
     rng = np.random.RandomState(0)
     masks = [_disc(rng.randint(0, 64), rng.randint(0, 64), rng.randint(1, 20)) for _ in range(30)]
@@ -246,9 +254,18 @@ def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
     assert rle.iou([], got).shape == (0, len(got))
     as_text = dict(got[3], counts=got[3]["counts"].decode())
     np.testing.assert_array_equal(rle.decode(as_text), masks[3])
+    for m in masks:
+        (found, tree), counters = traced(m)
+        want, want_tree = contours.find_contours_plain(m)
+        assert counters == {"contours.native": 1}
+        assert len(found) == len(want) and all(np.array_equal(a, b) for a, b in zip(found, want))
+        np.testing.assert_array_equal(tree, want_tree)
     monkeypatch.setattr(rle, "NATIVE", False)
     assert rle.native_library() is None and rle.encode(masks[0]) == got[0]
     np.testing.assert_array_equal(rle.iou(got[:5], got[:5]), rle.iou_plain(got[:5], got[:5]))
+    (found, tree), counters = traced(masks[0])
+    assert counters == {"contours.plain": 1}
+    np.testing.assert_array_equal(found[0], contours.find_contours_plain(masks[0])[0][0])
 
     # no library yet in an empty build directory: a failing or missing compiler raises
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
@@ -258,11 +275,18 @@ def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
         monkeypatch.setattr(rle, "NATIVE", mode)
         with pytest.raises(RuntimeError, match="failed to build"):
             rle.encode(masks[0])
+        with pytest.raises(RuntimeError, match="failed to build"):
+            contours.find_contours(masks[0])
     monkeypatch.setattr(shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="no C compiler"):
         rle.encode(masks[0])
-    monkeypatch.setattr(rle, "NATIVE", None)  # nothing installed to build with: numpy
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        contours.find_contours(masks[0])
+    monkeypatch.setattr(rle, "NATIVE", None)  # nothing installed to build with: Python
     assert rle.encode(masks[0]) == got[0]
+    (found, _), counters = traced(masks[0])
+    assert counters == {"contours.plain": 1}
+    np.testing.assert_array_equal(found[0], contours.find_contours_plain(masks[0])[0][0])
 
 
 # --------------------------------------------------------------------------- #
