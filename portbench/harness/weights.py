@@ -1,7 +1,8 @@
 """Random weights, made on the device: a frozen copy of the rule of the
 port's ``models/build.py init_random_weights`` (linear and conv weights
-normal with std 1/sqrt(fan_in), the cosine classifier's std 0.01, the
-relative-position bias tables std 0.02, biases 0, norms 1/0), then the lift
+normal with std 1/sqrt(fan_in), the cosine classifier's std 0.01, biases 0,
+norms 1/0, and what a module class declares in ``INIT`` for the parameters
+it owns itself: Swin's relative-position bias tables std 0.02), then the lift
 of ``tools/synthetic.py lift_objectness`` (+3 on each cascade head's
 positive-objectness logit; on a Mask R-CNN's first class): random weights
 score no detection above NuHTC's 0.35 without it.
@@ -31,7 +32,9 @@ LIFT = 3.0
 
 
 def _rule(model: nn.Module) -> List[Tuple[str, tuple, object]]:
-    """(name, shape, std | "zeros" | "ones") for every parameter."""
+    """(name, shape, std | "zeros" | "ones") for every parameter, in the
+    order of the module walk (each module's own ``INIT`` after its type's
+    rows): the order of the draws."""
     out, seen = [], set()
     for prefix, m in model.named_modules():
         p = f"{prefix}." if prefix else ""
@@ -44,10 +47,9 @@ def _rule(model: nn.Module) -> List[Tuple[str, tuple, object]]:
                     ("bias", "zeros")]
         elif isinstance(m, nn.LayerNorm):
             rows = [("weight", "ones"), ("bias", "zeros")]
-        elif isinstance(m, ref_model.WindowMSA):
-            rows = [("relative_position_bias_table", 0.02)]
         else:
-            continue
+            rows = []
+        rows += list(getattr(type(m), "INIT", {}).items())
         for attr, how in rows:
             t = getattr(m, attr, None)
             if isinstance(t, nn.Parameter):

@@ -2,12 +2,23 @@
 component proposals) and Mask R-CNN, inference only, plain PyTorch in f32.
 
 A frozen copy of the port's plain paths (``nuhtc_tpu_torch/models``: the
-Swin-T blocks on their plain path with exact softmax and erf GELU, FPN, RPN
-head and proposals, the fused semantic head, the bbox and mask heads, the
-RoI extractors through the plain RoIAlign, the multiclass NMS; and
+RPN head and proposals, the fused semantic head, the bbox and mask heads,
+the RoI extractors through the plain RoIAlign, the multiclass NMS; and
 ``apis/inference.py``'s WSI-mode preprocess and label-map paste) as they
 stood when the benchmark was defined. Module and parameter names are the
 port's, so one state dict loads into both. It imports nothing of the port.
+
+The backbone and the neck are parts, looked up by their ``type``:
+``parts/<type>.py`` (``part``) holds the plain module and its work count,
+
+- ``build(spec, in_channels)`` → (module, the channels of each map it
+  returns): a backbone takes the image's channels, a neck the backbone's;
+- ``flops(spec, side, in_channels)`` → the module's products on one square
+  image of ``side``, as ``FlopCounterMode`` counts them;
+
+and any module class in it may declare ``INIT = {attr: std | "zeros" |
+"ones"}`` for parameters it owns outside a linear, convolution or norm
+(``harness/weights.py``). A new backbone or neck is a new part file.
 
 ``build(cfg)`` reads the configuration file's ``model`` dict the way the
 port's ``build_detector`` reads it.
@@ -15,7 +26,9 @@ port's ``build_detector`` reads it.
 
 from __future__ import annotations
 
-from typing import Dict
+import importlib.util
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +42,7 @@ STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1), (0.033, 0.033, 0.067
 BBOX_STDS = (0.1, 0.1, 0.2, 0.2)
 IMG_MEAN = (123.675, 116.28, 103.53)
 IMG_STD = (58.395, 57.12, 57.375)
+PARTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "parts")
 
 
 # ---------------------------------------------------------------- layers
@@ -70,181 +84,7 @@ class MLP(nn.Module):
         return self.layers(x)
 
 
-# ---------------------------------------------------------------- Swin-T
-def shift_attn_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
-    img_mask = np.zeros((hp, wp), np.int32)
-    cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for wss in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img_mask[hs, wss] = cnt
-            cnt += 1
-    m = img_mask.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
-    return np.where(m[:, :, None] != m[:, None, :], -100.0, 0.0).astype(np.float32)
-
-
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, ws * ws, c)
-
-
-def window_reverse(wins: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
-    b = wins.shape[0] // (h // ws * (w // ws))
-    x = wins.reshape(b, h // ws, w // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, -1)
-
-
-def rel_position_index(ws: int) -> np.ndarray:
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij")).reshape(2, -1)
-    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0) + (ws - 1)
-    return rel[:, :, 0] * (2 * ws - 1) + rel[:, :, 1]
-
-
-class WindowMSA(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True,
-                 qk_scale: float | None = None):
-        super().__init__()
-        self.num_heads, self.window_size, self.qk_scale = num_heads, window_size, qk_scale
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
-        self.relative_position_bias_table = nn.Parameter(
-            torch.zeros((2 * window_size - 1) ** 2, num_heads))
-        self.register_buffer("relative_position_index",
-                             torch.from_numpy(rel_position_index(window_size)), persistent=False)
-
-    def forward(self, x, mask=None):
-        bw, n, c = x.shape
-        nh = self.num_heads
-        scale = self.qk_scale or (c // nh) ** -0.5
-        q, k, v = self.qkv(x).reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
-        bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
-        bias = bias.reshape(n, n, nh).permute(2, 0, 1)
-        attn = (q * scale) @ k.transpose(-1, -2) + bias[None]
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = (attn.reshape(bw // nw, nw, nh, n, n) + mask[None, :, None]).reshape(bw, nh, n, n)
-        return self.proj((attn.softmax(dim=-1) @ v).transpose(1, 2).reshape(bw, n, c))
-
-
-class ShiftWindowMSA(nn.Module):
-    def __init__(self, dim, num_heads, window_size, qkv_bias=True, qk_scale=None):
-        super().__init__()
-        self.w_msa = WindowMSA(dim, num_heads, window_size, qkv_bias, qk_scale)
-
-
-def _pad_roll(x, ws: int, shift: int):
-    h, w = x.shape[1:3]
-    x = F.pad(x, (0, 0, 0, (-w) % ws, 0, (-h) % ws))
-    return torch.roll(x, (-shift, -shift), dims=(1, 2)) if shift else x
-
-
-class SwinBlock(nn.Module):
-    def __init__(self, dim, num_heads, window_size, shift: bool, mlp_ratio=4.0, qkv_bias=True,
-                 qk_scale=None):
-        super().__init__()
-        self.window_size = window_size
-        self.shift = window_size // 2 if shift else 0
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = ShiftWindowMSA(dim, num_heads, window_size, qkv_bias, qk_scale)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.ffn = MLP(dim, int(dim * mlp_ratio))
-
-    def forward(self, x):
-        _, h, w, _ = x.shape
-        ws, s = self.window_size, self.shift
-        h1p = _pad_roll(self.norm1(x), ws, s)
-        hp, wp = h1p.shape[1:3]
-        mask = torch.from_numpy(shift_attn_mask(hp, wp, ws, s)).to(x.device) if s else None
-        y = window_reverse(self.attn.w_msa(window_partition(h1p, ws), mask), ws, hp, wp)
-        if s:
-            y = torch.roll(y, (s, s), dims=(1, 2))
-        x = x + y[:, :h, :w]
-        return x + self.ffn(self.norm2(x))
-
-
-class PatchMerging(nn.Module):
-    def __init__(self, dim: int, out_dim: int):
-        super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, out_dim, bias=False)
-
-    def forward(self, x):
-        b, h, w, c = x.shape
-        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
-        h, w = x.shape[1:3]
-        x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
-        return self.reduction(self.norm(x.reshape(b, h // 2, w // 2, 4 * c)))
-
-
-class SwinStage(nn.Module):
-    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio, qkv_bias, qk_scale,
-                 downsample: bool):
-        super().__init__()
-        self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, shift=(i % 2 == 1), mlp_ratio=mlp_ratio,
-                      qkv_bias=qkv_bias, qk_scale=qk_scale) for i in range(depth))
-        self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
-
-
-class PatchEmbed(nn.Module):
-    def __init__(self, in_channels: int, dim: int, patch_size: int, norm: bool):
-        super().__init__()
-        self.projection = nn.Conv2d(in_channels, dim, patch_size, stride=patch_size)
-        self.norm = nn.LayerNorm(dim, eps=1e-5) if norm else None
-
-    def forward(self, img):
-        x = self.projection(img.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return self.norm(x) if self.norm is not None else x
-
-
-class SwinTransformer(nn.Module):
-    def __init__(self, embed_dims=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
-                 window_size=7, mlp_ratio=4.0, qkv_bias=True, qk_scale=None, patch_norm=True,
-                 out_indices=(0, 1, 2, 3), patch_size=4, in_channels=3, **_ignored):
-        super().__init__()
-        self.out_indices = tuple(out_indices)
-        self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size, patch_norm)
-        self.stages = nn.ModuleList()
-        dim = embed_dims
-        for i, depth in enumerate(depths):
-            self.stages.append(SwinStage(dim, depth, num_heads[i], window_size, mlp_ratio,
-                                         qkv_bias, qk_scale, downsample=i < len(depths) - 1))
-            if i in self.out_indices:
-                self.add_module(f"norm{i}", nn.LayerNorm(dim, eps=1e-5))
-            dim *= 2
-
-    def forward(self, img):
-        x = self.patch_embed(img)
-        outs = []
-        for i, stage in enumerate(self.stages):
-            for blk in stage.blocks:
-                x = blk(x)
-            if i in self.out_indices:
-                outs.append(getattr(self, f"norm{i}")(x))
-            if stage.downsample is not None:
-                x = stage.downsample(x)
-        return tuple(outs)
-
-
-# ---------------------------------------------------------------- FPN, RPN
-class FPN(nn.Module):
-    def __init__(self, in_channels=(96, 192, 384, 768), out_channels=64, num_outs=4):
-        super().__init__()
-        self.num_outs = num_outs
-        self.lateral_convs = nn.ModuleList(
-            ConvModule(c, out_channels, 1, relu=False) for c in in_channels)
-        self.fpn_convs = nn.ModuleList(
-            ConvModule(out_channels, out_channels, 3, relu=False) for _ in in_channels)
-
-    def forward(self, feats):
-        laterals = [conv(f) for conv, f in zip(self.lateral_convs, feats)]
-        for i in range(len(laterals) - 1, 0, -1):
-            th, tw = laterals[i - 1].shape[1:3]
-            up = laterals[i].repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            laterals[i - 1] = laterals[i - 1] + up[:, :th, :tw]
-        return tuple(conv(x) for conv, x in zip(self.fpn_convs, laterals))[: self.num_outs]
-
-
+# ---------------------------------------------------------------- RPN
 class RPNHead(nn.Module):
     def __init__(self, in_channels=64, feat_channels=64, num_anchors=3):
         super().__init__()
@@ -468,12 +308,12 @@ class NuHTCRoIHead(nn.Module):
 class NuHTC(nn.Module):
     """The lite head family (one mask head, at the final stage)."""
 
-    def __init__(self, num_classes=5, fpn_channels=64, strides=(4, 8, 16, 32), num_stages=3,
+    def __init__(self, backbone: nn.Module, neck: nn.Module, fpn_channels: int, num_classes=5,
+                 strides=(4, 8, 16, 32), num_stages=3,
                  attn_start_level=2, attn_thres=0.965926, rpn_nms_pre=3000, rpn_max_per_img=1000,
                  rpn_nms_iou=0.7, rpn_min_bbox_size=10.0, rcnn_score_thr=0.35, rcnn_nms_iou=0.5,
                  rcnn_max_per_img=500, mask_thr_binary=0.5, watershed_proposal=True,
-                 watershed_max=512, watershed_min_area=10, scale_factor=2.0, nms_candidates=2048,
-                 backbone_cfg=None):
+                 watershed_max=512, watershed_min_area=10, scale_factor=2.0, nms_candidates=2048):
         super().__init__()
         self.num_classes, self.strides, self.num_stages = num_classes, tuple(strides), num_stages
         self.attn_start_level, self.attn_thres = attn_start_level, attn_thres
@@ -484,10 +324,7 @@ class NuHTC(nn.Module):
         self.watershed_proposal, self.watershed_max = watershed_proposal, watershed_max
         self.watershed_min_area, self.scale_factor = watershed_min_area, scale_factor
         self.nms_candidates = nms_candidates
-        self.backbone = SwinTransformer(**(backbone_cfg or {}))
-        dims = [self.backbone.patch_embed.projection.out_channels * 2 ** i
-                for i in range(len(self.backbone.stages))]
-        self.neck = FPN(in_channels=dims, out_channels=fpn_channels)
+        self.backbone, self.neck = backbone, neck
         self.rpn_head = RPNHead(in_channels=fpn_channels, feat_channels=fpn_channels)
         self.roi_head = NuHTCRoIHead(num_classes, fpn_channels, num_stages)
 
@@ -556,11 +393,11 @@ class MaskRCNNRoIHead(nn.Module):
 
 
 class MaskRCNN(nn.Module):
-    def __init__(self, num_classes=8, fpn_channels=64, strides=(4, 8, 16, 32), rpn_nms_pre=1000,
+    def __init__(self, backbone: nn.Module, neck: nn.Module, fpn_channels: int, num_classes=8,
+                 strides=(4, 8, 16, 32), rpn_nms_pre=1000,
                  rpn_max_per_img=1000, rpn_nms_iou=0.7, rpn_min_bbox_size=0.0, anchor_scale=8.0,
                  rcnn_score_thr=0.05, rcnn_nms_iou=0.5, rcnn_max_per_img=100,
-                 nms_candidates=1024, mask_thr_binary=0.5, scale_factor=1.0, with_mid_seg=True,
-                 backbone_cfg=None):
+                 nms_candidates=1024, mask_thr_binary=0.5, scale_factor=1.0, with_mid_seg=True):
         super().__init__()
         self.num_classes, self.strides = num_classes, tuple(strides)
         self.rpn_nms_pre, self.rpn_max_per_img = rpn_nms_pre, rpn_max_per_img
@@ -569,10 +406,7 @@ class MaskRCNN(nn.Module):
         self.rcnn_score_thr, self.rcnn_nms_iou = rcnn_score_thr, rcnn_nms_iou
         self.rcnn_max_per_img, self.nms_candidates = rcnn_max_per_img, nms_candidates
         self.mask_thr_binary, self.scale_factor = mask_thr_binary, scale_factor
-        self.backbone = SwinTransformer(**(backbone_cfg or {}))
-        dims = [self.backbone.patch_embed.projection.out_channels * 2 ** i
-                for i in range(len(self.backbone.stages))]
-        self.neck = FPN(in_channels=dims, out_channels=fpn_channels)
+        self.backbone, self.neck = backbone, neck
         self.rpn_head = RPNHead(in_channels=fpn_channels, feat_channels=fpn_channels)
         self.roi_head = MaskRCNNRoIHead(num_classes, fpn_channels)
         if with_mid_seg:  # the training-only mid-seg conv: loaded, never run at test
@@ -620,8 +454,34 @@ class MaskRCNN(nn.Module):
                            labels)
 
 
-_BACKBONE_KEYS = ("embed_dims", "depths", "num_heads", "window_size", "mlp_ratio", "qkv_bias",
-                  "qk_scale", "patch_norm", "out_indices", "patch_size")
+def part(type_name: str):
+    """The module of ``parts/<type_name>.py``, loaded by its path."""
+    path = os.path.join(PARTS_DIR, f"{type_name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"reference: no part of type {type_name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"portbench_part_{type_name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def part_specs(model_cfg: dict) -> Tuple[Tuple[str, dict], Tuple[str, dict]]:
+    """((type, spec) of the backbone, (type, spec) of the neck) of a
+    configuration's ``model`` dict: the backbone from ``backbone``, else
+    ``backbone_cfg``; the neck from ``neck``, else an FPN of
+    ``fpn_channels``; the types ``SwinTransformer`` and ``FPN`` where none
+    is named."""
+    bb = dict(model_cfg.get("backbone") or model_cfg.get("backbone_cfg") or {})
+    neck = dict(model_cfg.get("neck") or {"out_channels": model_cfg.get("fpn_channels", 64)})
+    return ((bb.get("type", "SwinTransformer"), bb), (neck.get("type", "FPN"), neck))
+
+
+def build_feats(model_cfg: dict) -> Tuple[nn.Module, nn.Module, int]:
+    """(backbone, neck, the neck's channels) of a ``model`` dict."""
+    (bb_type, bb_spec), (neck_type, neck_spec) = part_specs(model_cfg)
+    backbone, dims = part(bb_type).build(bb_spec, 3)
+    neck, channels = part(neck_type).build(neck_spec, dims)
+    return backbone, neck, channels[0]
 
 
 def build(cfg: dict) -> nn.Module:
@@ -632,30 +492,24 @@ def build(cfg: dict) -> nn.Module:
     scale = float(cfg["scale_factor"])
     test_cfg = dict(model_cfg.get("test_cfg") or {})
     if model_cfg.get("type") == "MaskRCNN":
-        keys = ("num_classes", "fpn_channels", "strides", "rpn_nms_pre", "rpn_max_per_img",
-                "rpn_nms_iou", "rpn_min_bbox_size", "anchor_scale", "rcnn_score_thr",
-                "rcnn_nms_iou", "rcnn_max_per_img", "nms_candidates", "mask_thr_binary",
-                "with_mid_seg")
+        keys = ("num_classes", "strides", "rpn_nms_pre", "rpn_max_per_img", "rpn_nms_iou",
+                "rpn_min_bbox_size", "anchor_scale", "rcnn_score_thr", "rcnn_nms_iou",
+                "rcnn_max_per_img", "nms_candidates", "mask_thr_binary", "with_mid_seg")
         kw = {k: model_cfg[k] for k in keys if k in model_cfg}
-        backbone = {k: v for k, v in dict(model_cfg.get("backbone_cfg") or {}).items()
-                    if k in _BACKBONE_KEYS}
-        return MaskRCNN(scale_factor=scale, backbone_cfg=backbone, **kw)
+        return MaskRCNN(*build_feats(model_cfg), scale_factor=scale, **kw)
     if model_cfg.get("type") != "NuHTC":
         raise ValueError(f"reference: no model of type {model_cfg.get('type')!r}")
     roi = dict(model_cfg.get("roi_head") or {})
     if "Lite" not in str(roi.get("type", "HybridTaskCascadeRoIHead_Lite")) or \
             "Fuse" in str(roi.get("type", "")):
         raise ValueError("reference: only the lite NuHTC head family is frozen here")
-    neck = dict(model_cfg.get("neck") or {})
-    backbone = {k: v for k, v in dict(model_cfg.get("backbone") or {}).items()
-                if k in _BACKBONE_KEYS}
     heads = roi.get("bbox_head") or [{}]
     heads = [heads] if isinstance(heads, dict) else heads
     ext = dict(roi.get("bbox_roi_extractor") or {})
     rpn_test, rcnn_test = dict(test_cfg.get("rpn") or {}), dict(test_cfg.get("rcnn") or {})
     return NuHTC(
+        *build_feats(model_cfg),
         num_classes=heads[0].get("num_classes", 5),
-        fpn_channels=neck.get("out_channels", 64),
         strides=tuple(ext.get("featmap_strides", (4, 8, 16, 32))),
         num_stages=roi.get("num_stages", 3),
         attn_start_level=ext.get("start_level", 2),
@@ -669,7 +523,7 @@ def build(cfg: dict) -> nn.Module:
         rcnn_max_per_img=rcnn_test.get("max_per_img", 500),
         mask_thr_binary=rcnn_test.get("mask_thr_binary", 0.5),
         watershed_proposal=roi.get("watershed_proposal", True),
-        scale_factor=scale, backbone_cfg=backbone)
+        scale_factor=scale)
 
 
 # ---------------------------------------------------------------- WSI-mode engine

@@ -14,7 +14,7 @@ import pytest
 from portbench.harness import common
 
 ROOT = common.ROOT
-CELLS = ["pannuke-slide-64", "maskrcnn-nucls-forward-b16"]
+CELLS = ["pannuke-slide-64", "maskrcnn-nucls-forward-b16", "pannuke-forward-b16"]
 
 
 def _run(cwd, workload, trace=0, seconds=3, env=None):

@@ -26,6 +26,9 @@ CELLS = {
     "maskrcnn-nucls-forward-b16": (dict(batch=2, tile=96, distinct_batches=2, warmup_batches=1,
                                         check_batches=2, check_from_first=3, trace_from=1,
                                         trace_batches=2), {"tile": 96}),
+    "pannuke-forward-b16": (dict(batch=2, tile=96, distinct_batches=2, warmup_batches=1,
+                                 check_batches=2, check_from_first=3, trace_from=1,
+                                 trace_batches=2), {"tile": 96}),
 }
 CPU = torch.device("cpu")
 

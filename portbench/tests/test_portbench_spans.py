@@ -19,6 +19,7 @@ SPAN_METRICS = {
                          "slide.mask_nms_ms_per_tile", "slide.contours_ms_per_tile",
                          "slide.export_ms_per_tile", "slide.post_us_per_detection"},
     "maskrcnn-nucls-forward-b16": {"forward.fixpoint_rounds_per_batch"},
+    "pannuke-forward-b16": {"forward.fixpoint_rounds_per_batch"},
 }
 
 

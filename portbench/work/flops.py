@@ -2,8 +2,9 @@
 shapes: products only (2·M·N·K a matrix product, 2·outputs·Cin·k² a
 convolution), as ``torch.utils.flop_counter.FlopCounterMode`` counts them.
 
-- ``feats_flops``: Swin-T and the FPN, equal to FlopCounterMode over the
-  reference's backbone and neck (held by a test);
+- ``feats_flops``: the backbone's and the neck's parts' own counts,
+  equal to FlopCounterMode over the reference's backbone and neck (held by
+  a test);
 - the heads on the kernel path at the configuration's padded sizes: the RPN
   head, the semantic head, the bbox and mask heads' products, the
   attention pools, K4's work at one sample point a bin (4 cells), and the
@@ -22,7 +23,10 @@ import json
 import os
 from typing import Dict
 
-from portbench.work.roofline import backbone_cfg, input_side, swin_stages
+import torch
+
+from portbench.reference import model as ref_model
+from portbench.work.roofline import fpn_channels, input_side
 
 STRIDES = (4, 8, 16, 32)
 
@@ -32,29 +36,15 @@ def conv(out_hw: int, cin: int, cout: int, k: int = 1) -> float:
 
 
 def feats_flops(cfg: dict, side: int) -> float:
-    """Swin backbone + FPN of one square image of ``side``."""
-    bb = backbone_cfg(cfg)
-    patch = bb.get("patch_size", 4)
-    total = conv((side // patch) ** 2, 3, bb.get("embed_dims", 96), patch)
-    ws2 = bb.get("window_size", 7) ** 2
-    mlp = bb.get("mlp_ratio", 4)
-    stages = swin_stages(bb, side)
-    for i, (s, p, c, depth) in enumerate(stages):
-        mp, m = p * p, s * s
-        # qkv + proj on the padded map, attention (two products), the MLP on the map
-        total += depth * (8.0 * mp * c * c + 4.0 * mp * ws2 * c + 4.0 * mlp * m * c * c)
-        if i < len(stages) - 1:
-            h2 = (s + 1) // 2
-            total += 2.0 * h2 * h2 * 4 * c * 2 * c
-    fpn_c = fpn_channels(cfg)
-    for s, _, c, _ in stages:
-        total += conv(s * s, c, fpn_c, 1) + conv(s * s, fpn_c, fpn_c, 3)
-    return total
-
-
-def fpn_channels(cfg: dict) -> int:
-    m = cfg["model"]
-    return m["neck"].get("out_channels", 64) if "neck" in m else m.get("fpn_channels", 64)
+    """Backbone + neck of one square image of ``side``: each part's
+    ``flops`` (``reference/parts/<type>.py``), the neck over the backbone's
+    channels."""
+    (bb_type, bb_spec), (neck_type, neck_spec) = ref_model.part_specs(cfg["model"])
+    backbone = ref_model.part(bb_type)
+    with torch.device("meta"):
+        _, dims = backbone.build(bb_spec, 3)
+    return (backbone.flops(bb_spec, side, 3)
+            + ref_model.part(neck_type).flops(neck_spec, side, dims))
 
 
 def _level_sides(side: int):

@@ -54,6 +54,13 @@ def backbone_cfg(cfg: dict) -> dict:
     return dict(m.get("backbone") or m.get("backbone_cfg") or {})
 
 
+def fpn_channels(cfg: dict) -> int:
+    """The neck's channels: its ``out_channels``, else a Mask R-CNN's
+    ``fpn_channels``."""
+    m = cfg["model"]
+    return m["neck"].get("out_channels", 64) if "neck" in m else m.get("fpn_channels", 64)
+
+
 def input_side(cfg: dict) -> int:
     rs = int(cfg["tile"] * cfg["scale_factor"] + 0.5)
     return (rs + 31) // 32 * 32
@@ -74,13 +81,12 @@ def k4_launches(cfg: dict, batch: int) -> List[Tuple[List[Tuple[int, int]], int,
     m = cfg["model"]
     side = input_side(cfg)
     strides = (4, 8, 16, 32)
+    c = fpn_channels(cfg)
     if m["type"] == "MaskRCNN":
-        c = m.get("fpn_channels", 64)
         props, dets = m.get("rpn_max_per_img", 1000), m.get("rcnn_max_per_img", 100)
         per_level = [([(side // s, c)], props, 7, False) for s in strides]
         per_level += [([(side // s, c)], dets, 14, False) for s in strides]
         return per_level
-    c = m["neck"].get("out_channels", 64)
     rpn = m["test_cfg"]["rpn"].get("max_per_img", 1000)
     rois = rpn + (512 if m["roi_head"].get("watershed_proposal", True) else 0)
     dets = m["test_cfg"]["rcnn"].get("max_per_img", 500)
