@@ -8,7 +8,16 @@ decomposed relative position bias, features after every ``out_every``-th
 block. Its keys are the reference's: ``patch_embed.proj``, ``pos_embed``,
 ``blocks.{i}.{norm1,attn.{qkv,proj,rel_pos_h,rel_pos_w},norm2,mlp.{fc1,fc2}}``.
 Attention and MLP are plain PyTorch products (the JAX package runs them in
-XLA; no TPU kernel computes them), the softmax in f32.
+XLA; no TPU kernel computes them), the softmax in f32. Each block's
+attention runs inside a span, ``model.vit_window_attn`` or
+``model.vit_global_attn``, and counts the bytes of the (b, heads, n, n)
+score tensors it writes, at the dtype it writes them, in
+``vit.window_score_bytes`` or ``vit.global_score_bytes``
+(``utils/profiling.py``). The relative-position indices and the position
+table's resize matrix (one for both axes of the square grid) are
+non-persistent buffers, built with the module for its ``img_size``: they
+follow ``.to()`` and stay out of the state dict, and a forward copies no
+constant to the device.
 
 The absolute-position resize is the JAX package's, not torch's bicubic:
 ``jax.image.resize(..., "cubic")`` is Keys' cubic with a = -0.5, drops the
@@ -37,6 +46,7 @@ from torch import nn
 
 from nuhtc_tpu_torch.models.swin import PatchEmbed, SwinBlock, SwinStage
 from nuhtc_tpu_torch.registry import BACKBONES
+from nuhtc_tpu_torch.utils.profiling import count, span
 
 
 def vit_window_partition(x: torch.Tensor, ws: int):
@@ -57,11 +67,12 @@ def vit_window_unpartition(wins: torch.Tensor, ws: int, pad_hw, hw) -> torch.Ten
     return x.reshape(b, hp, wp, -1)[:, :h, :w]
 
 
-def rel_pos_1d(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.Tensor:
-    """The (2·size-1, head_dim) table indexed by the pairwise relative
-    coordinates → (q, k, head_dim) (reference get_rel_pos, q_size == k_size)."""
-    coords = np.arange(q_size)[:, None] - np.arange(k_size)[None, :] + (k_size - 1)
-    return rel_pos[torch.from_numpy(coords).to(rel_pos.device)]
+def rel_pos_index(size: int) -> torch.Tensor:
+    """(size, size) int64 indices of the pairwise relative coordinates into
+    a (2·size-1)-row table (reference get_rel_pos, q_size == k_size): a
+    table indexed by them is (q, k, head_dim)."""
+    coords = torch.arange(size)
+    return coords[:, None] - coords[None, :] + (size - 1)
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -94,15 +105,8 @@ def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
-def resize_pos_embed(pos: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """(1, g, g, C) → (1, H, W, C) by ``jax.image.resize(..., "cubic")``'s
-    weights, in f32."""
-    g_h, g_w = pos.shape[1:3]
-    if (g_h, g_w) == tuple(out_hw):
-        return pos
-    wh = torch.from_numpy(cubic_resize_matrix(g_h, out_hw[0])).to(pos.device)
-    ww = torch.from_numpy(cubic_resize_matrix(g_w, out_hw[1])).to(pos.device)
-    return torch.einsum("bhwc,hH,wW->bHWc", pos.float(), wh, ww)
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class ViTAttention(nn.Module):
@@ -110,9 +114,11 @@ class ViTAttention(nn.Module):
     bias of ``input_size`` (reference visiontransformer.py Attention)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 use_rel_pos: bool = False, input_size: Tuple[int, int] | None = None):
+                 use_rel_pos: bool = False, input_size: Tuple[int, int] | None = None,
+                 counter: str = "vit.global_score_bytes"):
         super().__init__()
         self.num_heads = num_heads
+        self.counter = counter
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.use_rel_pos = use_rel_pos
@@ -120,6 +126,8 @@ class ViTAttention(nn.Module):
             hd = dim // num_heads
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
+            self.register_buffer("rel_index_h", rel_pos_index(input_size[0]), persistent=False)
+            self.register_buffer("rel_index_w", rel_pos_index(input_size[1]), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, C) → (B, H, W, C)."""
@@ -128,17 +136,29 @@ class ViTAttention(nn.Module):
         hd = c // nh
         q, k, v = self.qkv(x.reshape(b, h * w, c)).reshape(b, h * w, 3, nh, hd).unbind(2)
         attn = torch.einsum("bnhd,bmhd->bhnm", q * hd ** -0.5, k)
+        written = _nbytes(attn)  # of the (b, nh, n, n) tensors
         if self.use_rel_pos:
             if self.rel_pos_h.shape[0] != 2 * h - 1 or self.rel_pos_w.shape[0] != 2 * w - 1:
                 raise ValueError(f"ViTAttention: relative position tables "
                                  f"{tuple(self.rel_pos_h.shape)}, {tuple(self.rel_pos_w.shape)} "
                                  f"do not fit a {h}×{w} grid")
             rq = q.reshape(b, h, w, nh, hd)
-            bias_h = torch.einsum("bhwnd,hkd->bnhwk", rq, rel_pos_1d(self.rel_pos_h, h, h).to(q))
-            bias_w = torch.einsum("bhwnd,wkd->bnhwk", rq, rel_pos_1d(self.rel_pos_w, w, w).to(q))
-            attn = attn.reshape(b, nh, h, w, h, w) + bias_h[..., :, None] + bias_w[..., None, :]
+            bias_h = torch.einsum("bhwnd,hkd->bnhwk", rq, self.rel_pos_h[self.rel_index_h].to(q))
+            bias_w = torch.einsum("bhwnd,wkd->bnhwk", rq, self.rel_pos_w[self.rel_index_w].to(q))
+            attn = attn.reshape(b, nh, h, w, h, w) + bias_h[..., :, None]
+            written += _nbytes(attn)
+            attn = attn + bias_w[..., None, :]
+            written += _nbytes(attn)
             attn = attn.reshape(b, nh, h * w, h * w)
-        attn = attn.float().softmax(dim=-1).to(v.dtype)
+        if attn.dtype != torch.float32:
+            attn = attn.float()
+            written += _nbytes(attn)
+        attn = attn.softmax(dim=-1)
+        written += _nbytes(attn)
+        if v.dtype != attn.dtype:
+            attn = attn.to(v.dtype)
+            written += _nbytes(attn)
+        count(self.counter, written)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, h * w, c)
         return self.proj(out).reshape(b, h, w, c)
 
@@ -165,19 +185,23 @@ class ViTBlock(nn.Module):
         super().__init__()
         self.window_size = window_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        kind = "window" if window_size > 0 else "global"
+        self.span = f"model.vit_{kind}_attn"
         attn_size = (window_size, window_size) if window_size > 0 else input_size
-        self.attn = ViTAttention(dim, num_heads, qkv_bias, use_rel_pos, attn_size)
+        self.attn = ViTAttention(dim, num_heads, qkv_bias, use_rel_pos, attn_size,
+                                 counter=f"vit.{kind}_score_bytes")
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = ViTMlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1:3]
         y = self.norm1(x)
-        if self.window_size > 0:
-            wins, pad_hw = vit_window_partition(y, self.window_size)
-            y = vit_window_unpartition(self.attn(wins), self.window_size, pad_hw, (h, w))
-        else:
-            y = self.attn(y)
+        with span(self.span):
+            if self.window_size > 0:
+                wins, pad_hw = vit_window_partition(y, self.window_size)
+                y = vit_window_unpartition(self.attn(wins), self.window_size, pad_hw, (h, w))
+            else:
+                y = self.attn(y)
         x = x + y
         return x + self.mlp(self.norm2(x))
 
@@ -194,9 +218,13 @@ class ViTPatchEmbed(nn.Module):
 @BACKBONES.register()
 class ViT(nn.Module):
     """The ViTDet plain ViT; returns the features after every
-    ``out_every``-th block. The global blocks' relative position tables are
-    made for ``img_size // patch_size`` tokens a side (the JAX module sizes
-    them from its first input), and an input of another size raises there."""
+    ``out_every``-th block (``out_channels``: the channels of each). The
+    global blocks' relative position tables and the position table's resize
+    matrix (f32 until the module is cast) are made for ``img_size //
+    patch_size`` tokens a side (the JAX module sizes them from its first
+    input), and an input of another size raises. It has no stochastic
+    depth: ``drop_path_rate`` is accepted and unused, and training a ViT
+    detector is out of scope (a train step would run it without drop path)."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16, in_channels: int = 3,
                  embed_dims: int = 768, depth: int = 12, num_heads: int = 12,
@@ -207,26 +235,35 @@ class ViT(nn.Module):
                  out_every: int = 3, drop_path_rate: float = 0.0, init_cfg=None):
         super().__init__()
         self.out_every = out_every
+        self.out_channels = [embed_dims] * (depth // out_every)
         self.pretrain_use_cls_token = pretrain_use_cls_token
         self.grid = pretrain_img_size // patch_size
         self.patch_embed = ViTPatchEmbed(in_channels, embed_dims, patch_size)
         self.pos_embed = None
+        tokens = img_size // patch_size
+        self.tokens = tokens
         if use_abs_pos:
             n_pos = self.grid ** 2 + (1 if pretrain_use_cls_token else 0)
             self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, embed_dims))
-        tokens = img_size // patch_size
+            resize = torch.from_numpy(cubic_resize_matrix(self.grid, tokens))
+            self.register_buffer("pos_resize", resize, persistent=False)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dims, num_heads, mlp_ratio, qkv_bias, use_rel_pos,
                      window_size if i in window_block_indexes else 0, (tokens, tokens))
             for i in range(depth))
 
-    def forward(self, img: torch.Tensor):
-        """img (B, H, W, 3) normalized → tuple of (B, H/16, W/16, C) maps."""
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None):
+        """img (B, H, W, 3) normalized → tuple of (B, H/16, W/16, C) maps;
+        ``generator`` is the detectors' stochastic-depth argument, unused."""
         x = self.patch_embed(img)
         if self.pos_embed is not None:
             pos = self.pos_embed[:, 1:] if self.pretrain_use_cls_token else self.pos_embed
-            pos = pos.reshape(1, self.grid, self.grid, -1)
-            x = x + resize_pos_embed(pos, tuple(x.shape[1:3])).to(x.dtype)
+            if x.shape[1:3] != (self.tokens, self.tokens):
+                raise ValueError(f"ViT: a {tuple(x.shape[1:3])} token grid, where the "
+                                 f"position table is resized to {self.tokens}²")
+            pos = pos.reshape(1, self.grid, self.grid, -1).float()
+            m = self.pos_resize.float()
+            x = x + torch.einsum("bhwc,hH,wW->bHWc", pos, m, m).to(x.dtype)
         outs = []
         for i, blk in enumerate(self.blocks):
             x = blk(x)
@@ -244,18 +281,19 @@ class SwinUnetUp(nn.Module):
         self.expand = nn.Linear(dim, dim // 2)
         self.block = SwinBlock(dim // 2, num_heads, window_size, shift=False, kernel=kernel)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         th, tw = skip.shape[1:3]
-        return self.block(self.expand(x)[:, :th, :tw] + skip)
+        return self.block(self.expand(x)[:, :th, :tw] + skip, generator)
 
 
 @BACKBONES.register()
 class SwinUnet(nn.Module):
     """Swin stages down, then expand + skip-sum stages back up; returns the
     decoder's features at the four scales (finest first, the deepest
-    encoder output last). ``kernel`` picks the Swin kernel tier of every
-    block (``SwinBlock``)."""
+    encoder output last; ``out_channels``: the channels of each). ``kernel``
+    picks the Swin kernel tier of every block (``SwinBlock``)."""
 
     def __init__(self, embed_dims: int = 96, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
@@ -263,6 +301,7 @@ class SwinUnet(nn.Module):
         super().__init__()
         self.patch_embed = PatchEmbed(in_channels, embed_dims, 4, norm=True)
         n = len(depths)
+        self.out_channels = [embed_dims * 2 ** s for s in range(n)]
         self.enc = nn.ModuleList(
             SwinStage(embed_dims * 2 ** s, depth, num_heads[s], window_size, 4.0, True, None,
                       downsample=s < n - 1, kernel=kernel)
@@ -271,17 +310,18 @@ class SwinUnet(nn.Module):
             SwinUnetUp(embed_dims * 2 ** (s + 1), num_heads[s], window_size, kernel)
             for s in range(n - 1))
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None):
+        """``generator`` draws the blocks' stochastic depth in training mode."""
         x = self.patch_embed(img)
         skips = []
         for stage in self.enc:
             for blk in stage.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             skips.append(x)
             if stage.downsample is not None:
                 x = stage.downsample(x)
         outs = [x]
         for s in range(len(self.dec) - 1, -1, -1):
-            x = self.dec[s](x, skips[s])
+            x = self.dec[s](x, skips[s], generator)
             outs.insert(0, x)
         return tuple(outs)

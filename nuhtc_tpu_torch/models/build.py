@@ -5,7 +5,10 @@ final stage; ``*Fuse*``: the n-class seg branch besides; any other, e.g.
 ``HybridTaskCascadeRoIHead_Cus``: a mask head per stage with info-flow; an
 explicit ``roi_head.lite`` / ``roi_head.lite_fuse`` key overrides the name);
 any other detector ``type`` is a registered detector (``DETECTORS``, e.g.
-MaskRCNN) built from the config keys that are its constructor arguments."""
+MaskRCNN) built from the config keys that are its constructor arguments.
+Either takes a typed ``backbone`` and ``neck`` (``models/parts.py``); the
+Swin kernel tier goes to a ``SwinTransformer`` alone, and ``backbone_cfg``
+still spells a Swin."""
 
 from __future__ import annotations
 
@@ -22,8 +25,15 @@ from nuhtc_tpu_torch.models.mask_rcnn import MaskRCNN  # noqa: F401  (registers 
 from nuhtc_tpu_torch.models.swin import WindowMSA
 from nuhtc_tpu_torch.registry import DETECTORS
 
-_BACKBONE_KEYS = ("embed_dims", "depths", "num_heads", "window_size", "mlp_ratio", "qkv_bias",
-                  "qk_scale", "patch_norm", "out_indices", "patch_size", "drop_path_rate")
+
+def _with_tier(backbone: Dict[str, Any], swin_kernel: str) -> Dict[str, Any]:
+    """A typed backbone (a Swin where no type is named), with the Swin
+    kernel tier if it is a ``SwinTransformer``."""
+    backbone = dict(backbone)
+    backbone.setdefault("type", "SwinTransformer")
+    if backbone["type"] == "SwinTransformer":
+        backbone["kernel"] = swin_kernel
+    return backbone
 
 
 def _build_registered(mtype: str, model_cfg: Dict[str, Any], test_cfg, scale_factor: float,
@@ -44,10 +54,10 @@ def _build_registered(mtype: str, model_cfg: Dict[str, Any], test_cfg, scale_fac
         if field in fields and val is not None:
             kwargs.setdefault(field, val)
     kwargs.setdefault("scale_factor", scale_factor)
-    if "backbone_cfg" in fields:
-        backbone = {k: v for k, v in dict(kwargs.get("backbone_cfg") or {}).items()
-                    if k in _BACKBONE_KEYS}
-        kwargs["backbone_cfg"] = dict(backbone, kernel=swin_kernel)
+    if kwargs.get("backbone"):
+        kwargs["backbone"] = _with_tier(kwargs["backbone"], swin_kernel)
+    elif "backbone_cfg" in fields:
+        kwargs["backbone_cfg"] = dict(kwargs.get("backbone_cfg") or {}, kernel=swin_kernel)
     dropped = set(model_cfg) - set(kwargs) - {"type", "test_cfg"}
     if dropped:
         logging.getLogger("nuhtc_tpu_torch").warning(
@@ -69,9 +79,7 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
     lite = bool(roi.get("lite", "Lite" in roi_type))
     lite_fuse = bool(roi.get("lite_fuse", "Fuse" in roi_type))
     neck = dict(model_cfg.get("neck") or {})
-    backbone = {k: v for k, v in dict(model_cfg.get("backbone") or {}).items()
-                if k in _BACKBONE_KEYS}
-    backbone["kernel"] = swin_kernel
+    backbone = _with_tier(model_cfg.get("backbone") or {}, swin_kernel)
     bbox_heads = roi.get("bbox_head") or [{}]
     if isinstance(bbox_heads, dict):
         bbox_heads = [bbox_heads]
@@ -89,7 +97,6 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
                     else "instance_balanced" if "InstanceBalanced" in sampler_type else "random")
     return NuHTC(
         num_classes=bbox_heads[0].get("num_classes", 5),
-        fpn_channels=neck.get("out_channels", 64),
         strides=tuple(bbox_ext.get("featmap_strides", (4, 8, 16, 32))),
         num_stages=roi.get("num_stages", 3),
         attn_start_level=bbox_ext.get("start_level", 2),
@@ -104,7 +111,8 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
         mask_thr_binary=rcnn_test.get("mask_thr_binary", 0.5),
         watershed_proposal=roi.get("watershed_proposal", True),
         scale_factor=scale_factor,
-        backbone_cfg=backbone,
+        backbone=backbone,
+        neck=neck or None,
         rcnn_sampler=rcnn_sampler,
         lite=lite,
         lite_fuse=lite_fuse,

@@ -16,7 +16,10 @@ has a mask head per stage, chained by HTC's info-flow (each head's
 sigmoid-averaged at test; ``lite_fuse`` (``_Lite_Fuse``) adds the n-class
 ``HTCSegBranch``, whose per-class watershed instances ``fuse_test`` returns.
 
-Outputs are padded to fixed shapes, as in the JAX package.
+Outputs are padded to fixed shapes, as in the JAX package. The backbone
+and the neck are any registered ones (``backbone``, ``neck``; else
+``backbone_cfg``'s Swin and an FPN of ``fpn_channels``: ``models/parts.py``),
+the heads at the neck's channels.
 
 ``compute_losses`` is the supervised train path (port of
 nuhtc_tpu/models/detector.py:539-865 with ``exact_rois=True``: the port
@@ -42,11 +45,10 @@ from torch import nn
 from nuhtc_tpu_torch.models import losses as L
 from nuhtc_tpu_torch.models.bbox_head import Shared2FCBBoxHeadWithProb, seesaw_activation
 from nuhtc_tpu_torch.models.extra_heads import HTCSegBranch, soft_distance_target
-from nuhtc_tpu_torch.models.fpn import FPN
 from nuhtc_tpu_torch.models.mask_head import FusedSemanticHead, HTCMaskHead
+from nuhtc_tpu_torch.models.parts import build_backbone_neck
 from nuhtc_tpu_torch.models.roi_extractor import stage_roi_features
 from nuhtc_tpu_torch.models.rpn_head import RPNHead, rpn_proposals
-from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
 from nuhtc_tpu_torch.ops import nms as nms_ops
 from nuhtc_tpu_torch.ops.anchors import grid_anchors
@@ -106,7 +108,8 @@ class NuHTC(nn.Module):
                  watershed_min_area: int = 10, scale_factor: float = 2.0,
                  nms_candidates: int = 2048, backbone_cfg: dict | None = None,
                  rcnn_sampler: str = "random", lite: bool = True, lite_fuse: bool = False,
-                 fuse_max_instances: int = 256, fuse_aux_losses: bool = False):
+                 fuse_max_instances: int = 256, fuse_aux_losses: bool = False,
+                 backbone: dict | None = None, neck: dict | None = None):
         super().__init__()
         if rcnn_sampler not in SAMPLERS:
             raise ValueError(f"NuHTC: rcnn_sampler must be one of {SAMPLERS}, not {rcnn_sampler!r}")
@@ -122,12 +125,10 @@ class NuHTC(nn.Module):
         self.nms_candidates = nms_candidates
         self.lite, self.lite_fuse = lite, lite_fuse
         self.fuse_max_instances, self.fuse_aux_losses = fuse_max_instances, fuse_aux_losses
-        self.backbone = SwinTransformer(**(backbone_cfg or {}))
-        dims = [self.backbone.patch_embed.projection.out_channels * 2 ** i
-                for i in range(len(self.backbone.stages))]
-        self.neck = FPN(in_channels=dims, out_channels=fpn_channels)
-        self.rpn_head = RPNHead(in_channels=fpn_channels, feat_channels=fpn_channels)
-        self.roi_head = RoIHead(num_classes, fpn_channels, num_stages, lite, lite_fuse)
+        self.backbone, self.neck = build_backbone_neck(backbone, neck, backbone_cfg, fpn_channels)
+        channels = self.neck.out_channels
+        self.rpn_head = RPNHead(in_channels=channels, feat_channels=channels)
+        self.roi_head = RoIHead(num_classes, channels, num_stages, lite, lite_fuse)
 
     def _roi_features(self, feats, semantic_feat, rois, out_size: int, sampling_ratio: int,
                       sem_pool_from: int | None):

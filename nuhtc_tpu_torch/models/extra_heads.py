@@ -91,10 +91,15 @@ def soft_distance_target(mask: torch.Tensor, iterations: int = 8) -> torch.Tenso
 
 @NECKS.register()
 class ViT_FPN(nn.Module):
-    """Single-scale ViT feature → (×4, ×2, ×1, ×½) maps of ``out_channels``."""
+    """Single-scale ViT feature → (×4, ×2, ×1, ×½) maps of ``out_channels``;
+    of the backbone's maps it reads the last (``takes_last_map``), of
+    ``in_channels``."""
+
+    takes_last_map = True
 
     def __init__(self, in_channels: int = 768, out_channels: int = 64):
         super().__init__()
+        self.out_channels = out_channels
         self.up4 = nn.ConvTranspose2d(in_channels, out_channels, 4, stride=4)
         self.up2 = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
         self.same = nn.Conv2d(in_channels, out_channels, 1)

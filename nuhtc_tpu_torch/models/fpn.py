@@ -20,6 +20,7 @@ class FPN(nn.Module):
                  out_channels: int = 64, num_outs: int = 4):
         super().__init__()
         self.num_outs = num_outs
+        self.out_channels = out_channels
         self.lateral_convs = nn.ModuleList(
             ConvModule(c, out_channels, 1, relu=False) for c in in_channels)
         self.fpn_convs = nn.ModuleList(

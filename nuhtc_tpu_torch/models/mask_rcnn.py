@@ -10,7 +10,10 @@ roi_head_partial.py).
 
 Outputs are padded to fixed shapes with NuHTC's keys (``boxes``,
 ``scores``, ``labels``, ``probs``, ``valid``, ``mask_probs``), so the
-inference engine takes them unchanged.
+inference engine takes them unchanged. The backbone and the neck are any
+registered ones (``backbone``, ``neck``; else ``backbone_cfg``'s Swin and an
+FPN of ``fpn_channels``: ``models/parts.py``), the heads at the neck's
+channels.
 
 ``compute_losses``: RPN (256 samples at pos fraction .5 on the anchors
 inside the image), the bbox branch on every gt (512 samples at .25), the
@@ -33,12 +36,11 @@ from torch import nn
 
 from nuhtc_tpu_torch.models import losses as L
 from nuhtc_tpu_torch.models.bbox_head import Shared2FCBBoxHead
-from nuhtc_tpu_torch.models.fpn import FPN
 from nuhtc_tpu_torch.models.layers import conv_nhwc
 from nuhtc_tpu_torch.models.mask_head import HTCMaskHead
+from nuhtc_tpu_torch.models.parts import build_backbone_neck
 from nuhtc_tpu_torch.models.roi_extractor import multilevel_roi_features
 from nuhtc_tpu_torch.models.rpn_head import RPNHead, rpn_proposals
-from nuhtc_tpu_torch.models.swin import SwinTransformer
 from nuhtc_tpu_torch.ops import boxes as box_ops
 from nuhtc_tpu_torch.ops import nms as nms_ops
 from nuhtc_tpu_torch.ops.anchors import grid_anchors
@@ -72,7 +74,8 @@ class MaskRCNN(nn.Module):
                  rcnn_score_thr: float = 0.05, rcnn_nms_iou: float = 0.5,
                  rcnn_max_per_img: int = 100, nms_candidates: int = 1024,
                  mask_thr_binary: float = 0.5, scale_factor: float = 1.0,
-                 with_mid_seg: bool = True, backbone_cfg: dict | None = None):
+                 with_mid_seg: bool = True, backbone_cfg: dict | None = None,
+                 backbone: dict | None = None, neck: dict | None = None):
         super().__init__()
         self.num_classes, self.strides = num_classes, tuple(strides)
         self.rpn_nms_pre, self.rpn_max_per_img = rpn_nms_pre, rpn_max_per_img
@@ -82,15 +85,13 @@ class MaskRCNN(nn.Module):
         self.rcnn_max_per_img, self.nms_candidates = rcnn_max_per_img, nms_candidates
         self.mask_thr_binary, self.scale_factor = mask_thr_binary, scale_factor
         self.with_mid_seg = with_mid_seg
-        self.backbone = SwinTransformer(**(backbone_cfg or {}))
-        dims = [self.backbone.patch_embed.projection.out_channels * 2 ** i
-                for i in range(len(self.backbone.stages))]
-        self.neck = FPN(in_channels=dims, out_channels=fpn_channels)
-        self.rpn_head = RPNHead(in_channels=fpn_channels, feat_channels=fpn_channels)
-        self.roi_head = RoIHead(num_classes, fpn_channels)
+        self.backbone, self.neck = build_backbone_neck(backbone, neck, backbone_cfg, fpn_channels)
+        channels = self.neck.out_channels
+        self.rpn_head = RPNHead(in_channels=channels, feat_channels=channels)
+        self.roi_head = RoIHead(num_classes, channels)
         if with_mid_seg:
             # the reference's conv_last: 3×3 over [image, pixel-shuffled level 0]
-            self.conv_last = nn.Conv2d(3 + fpn_channels // 16, 1, 3, padding=1)
+            self.conv_last = nn.Conv2d(3 + channels // 16, 1, 3, padding=1)
 
     # ------------------------------------------------------------------ #
     def features(self, img: torch.Tensor, generator: torch.Generator | None = None

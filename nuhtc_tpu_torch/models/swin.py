@@ -230,7 +230,8 @@ class PatchEmbed(nn.Module):
 
 @BACKBONES.register()
 class SwinTransformer(nn.Module):
-    """Returns the per-level NHWC features listed in ``out_indices``."""
+    """Returns the per-level NHWC features listed in ``out_indices``
+    (``out_channels``: the channels of each)."""
 
     def __init__(self, embed_dims: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
@@ -240,6 +241,7 @@ class SwinTransformer(nn.Module):
                  drop_path_rate: float = 0.2):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.out_channels = [embed_dims * 2 ** i for i in self.out_indices]
         self.patch_embed = PatchEmbed(in_channels, embed_dims, patch_size, patch_norm)
         self.stages = nn.ModuleList()
         dim = embed_dims
