@@ -32,6 +32,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   K2. ``window_attention`` against its plain twin at the four stage shapes,
      shift 0 and 3; max abs error ≤ 0.05; the unfused bf16 yardstick up to
      proj beside it;
+  V. ``vit_attention`` (``phase_vit_attention``, csrc/vit_attention.cu) at
+     the shapes of the cell vitdet-b-nucls-forward-b8: 8 × 12 heads × 4,096
+     tokens on a 64 × 64 grid and 200 windows × 12 heads × 196 tokens on
+     14 × 14, with relative-position tables, against its plain twin in f32
+     (max abs error ≤ 2⁻⁸ of the largest |v|, derived beside the phase);
+     the kernel's time beside its bound, the plain twin's, and one
+     ``scaled_dot_product_attention`` call with the bias as a mask as the
+     ``library_ms`` yardstick only; then ViTDet-B at 1024², B8 bf16: one
+     launch a block, 4 global and 8 window, none of K1-K4; img/s;
   5. a small-input reference check: the backbone on the card (through K1,
      then through K2) against the plain CPU path in f32;
   6. the WSI-mode slice: ``init_detector`` on the PanNuke config (Swin-T,
@@ -168,7 +177,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      and golden kind (``phase_backbones``): ``ViT`` at ViTDet-B's published
      widths with ``ViT_FPN`` 64, B16 of 512² in bf16 against f32 plain on
      the same bf16-rounded weights (the bound derived beside VITDET_B),
-     img/s and peak memory, no hand kernel launched; ``SwinUnet`` at its
+     img/s and peak memory, 12 ``vit_attention`` launches a bf16 forward
+     and no other hand kernel; ``SwinUnet`` at its
      defaults, B16 of 512² in bf16: 11 K1 launches a forward, against tier
      "none" within 0.05 of each output's scale, tiles/s; the RoI-extractor
      variants on the ViT_FPN pyramid with 512 clustered RoIs a tile
@@ -216,14 +226,15 @@ replayed as one CUDA graph (``device_ms``), because K3's wrapper spends more
 time on the host than its kernels on the card.
 Every count is set to 0 just before a path is driven and read just after it.
 The line before the last is a JSON object with each kernel's launches (also
-by path: wsi, strict, slide, embed, eval, patch, robustness, train,
+by path: vit, wsi, strict, slide, embed, eval, patch, robustness, train,
 train_configs, parallel_train, parallel_test, parallel_2rank, parallel_2d,
 cus_serve, cus_train, fuse_serve, fuse_train, backbones, extractors,
 golden, benchmark, benchmark_wsi, benchmark_train, semi_serve, semi_train;
-K4's backward is an entry of its own),
+K4's backward and the ViT's attention are entries of their own),
 error, times and bound (the least time the card could take: the larger of
 the bytes moved once over 3.35 TB/s and the operations over the peak rate
-for their type); the last line is {"ok": true, "device": {...}}.
+for their type), and ``library_ms`` (null but for the ViT's attention); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -380,6 +391,125 @@ def phase_swin_kernel(device, which: str):
         f"unfused bf16 sequence (yardstick) {unfused_ms:.3f} ms bound {bound:.4f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 unfused_bf16_ms=unfused_ms)
+
+
+# ViTDet-B's attention at the shapes of the cell vitdet-b-nucls-forward-b8
+# (B8 of 1024²: 64² tokens): (name, sequences, grid h, grid w, blocks a
+# forward); the windows are 25 an image of 14², the 64² map padded to 70²
+VIT_ATTN_SHAPES = (("global", 8, 64, 64, 4), ("window", 200, 14, 14, 8))
+VIT_ATTN_HEADS = 12
+VIT_ATTN_FORWARD = (8, 1024)  # the launch check's forward: batch, input side
+
+
+def _vit_attn_errors(got, want):
+    d = (got.float() - want).abs()
+    return d.max().item(), d.mean().item()
+
+
+def phase_vit_attention(device):
+    """``vit_attention`` (``csrc/vit_attention.cu``) at VIT_ATTN_SHAPES, on
+    bf16 q, k, v drawn at std 1 and relative-position tables drawn at std
+    0.02, against its plain twin in f32 on the same values. The rule (the
+    card tests'): the kernel's largest and mean absolute error against the
+    f32 twin are no larger than those of the port's bf16 plain path
+    (``vit_attention_unfused``) on the same inputs. The rule's own check:
+    the kernel fed a zeroed ``rel_w`` has to fail it. The kernel's
+    time beside its bound (``bound_ms``), the plain twin's, and, as the
+    ``library_ms`` yardstick only, one ``scaled_dot_product_attention`` call
+    with the bias as an additive (b, heads, n, n) mask, which the port never
+    calls. Then ViTDet-B (VITDET_B at 1024²) in bf16, one forward of B8:
+    one launch a block, 4 in the global and 8 in the window blocks; img/s.
+    Returns the kernel's figures for one forward (4 global + 8 window calls)
+    and that forward's launches."""
+    import torch
+    import torch.nn.functional as F
+    from nuhtc_tpu_torch.models.backbones import ViT
+    from nuhtc_tpu_torch.ops.vit_attention import (
+        rel_bias, vit_attention, vit_attention_plain, vit_attention_unfused)
+    from nuhtc_tpu_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    nh, hd = VIT_ATTN_HEADS, 64
+    c = nh * hd
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    err = 0.0
+    for name, b, h, w, blocks in VIT_ATTN_SHAPES:
+        n = h * w
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device=device).bfloat16()
+        q, k, v = qkv.view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = ((torch.randn(2 * side - 1, hd, generator=gen, device=device) * 0.02)
+                        .bfloat16() for side in (h, w))
+        want = vit_attention_plain(qkv.float(), b, h, w, nh, rel_h.float(), rel_w.float(),
+                                   hd ** -0.5)
+        k_err = _vit_attn_errors(vit_attention(qkv, b, h, w, nh, rel_h, rel_w, hd ** -0.5), want)
+        p_err = _vit_attn_errors(
+            vit_attention_unfused(qkv, b, h, w, nh, rel_h, rel_w, hd ** -0.5), want)
+        z_err = _vit_attn_errors(vit_attention(qkv, b, h, w, nh, rel_h, torch.zeros_like(rel_w),
+                                               hd ** -0.5), want)
+        del want
+        if not (np.isfinite(k_err).all() and k_err[0] <= p_err[0] and k_err[1] <= p_err[1]):
+            raise AssertionError(f"vit_attention {name}: max, mean abs err {k_err} against the "
+                                 f"f32 twin, the bf16 plain path's {p_err}")
+        if z_err[0] <= p_err[0] and z_err[1] <= p_err[1]:
+            raise AssertionError(f"vit_attention {name}: the kernel without bias_w passes the "
+                                 f"rule ({z_err} against the bf16 plain path's {p_err})")
+        e = k_err[0]
+        t_k = cuda_ms(lambda: vit_attention(qkv, b, h, w, nh, rel_h, rel_w, hd ** -0.5))
+        t_p = cuda_ms(lambda: vit_attention_plain(qkv, b, h, w, nh, rel_h, rel_w, hd ** -0.5),
+                      rounds=3, inner=1)
+        bias_h, bias_w = rel_bias(qkv.view(b, n, 3, nh, hd)[:, :, 0], h, w, rel_h, rel_w)
+        mask = (bias_h.view(b, nh, h, w, h)[..., :, None]
+                + bias_w.view(b, nh, h, w, w)[..., None, :]).reshape(b, nh, n, n)
+        del bias_h, bias_w
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                      rounds=3, inner=2)
+        del mask
+        flops, nbytes = 4.0 * b * nh * n * n * hd, 4 * b * n * c * 2
+        b_ms, b_by = bound_ms(flops, PEAK_BF16, nbytes)
+        log(f"vit_attention {name} {b}x{nh} heads x{n} tokens ({h}x{w} grid): max, mean abs "
+            f"err {k_err[0]:.5f} {k_err[1]:.6f} (bf16 plain path {p_err[0]:.5f} {p_err[1]:.6f}; "
+            f"kernel with rel_w zeroed {z_err[0]:.5f} {z_err[1]:.6f}, fails) kernel {t_k:.4f} "
+            f"ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{100 * b_ms / t_k:.1f} %) plain twin {t_p:.3f} ms sdpa with the bias as a mask "
+            f"(yardstick) {t_l:.3f} ms")
+        err = max(err, e)
+        for key, value in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                           ("bound_ms", b_ms)):
+            total[key] += blocks * value
+        del qkv, q, k, v, rel_h, rel_w
+        torch.cuda.empty_cache()
+    log(f"vit_attention per forward (4 global + 8 window blocks): kernel {total['ms']:.3f} ms "
+        f"plain twin {total['plain_ms']:.3f} ms sdpa (yardstick) {total['library_ms']:.3f} ms "
+        f"bound {total['bound_ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f} %)")
+
+    fb, side = VIT_ATTN_FORWARD
+    vit = _vit_weights(ViT(**dict(VITDET_B, img_size=side)), 0).eval().to(device, torch.bfloat16)
+    x = _normalized_tiles(np.random.RandomState(22), fb, side, device, torch.bfloat16)
+    marks = []  # (block kind, launches so far) after each block of the first forward
+    hooks = [blk.register_forward_hook(lambda m, args, out: marks.append(
+        ("window" if m.window_size else "global", vit_attention.launches)))
+        for blk in vit.blocks]
+    reset_counts()
+    with torch.no_grad():
+        vit(x)
+        for hook in hooks:
+            hook.remove()
+        fwd_s, _ = _timed(lambda: vit(x), VIT_RUNS)
+    counts = read_counts()
+    forwards = VIT_RUNS + 2
+    by_kind = {"global": 0, "window": 0}
+    for i, (kind, launches) in enumerate(marks):
+        by_kind[kind] += launches - (marks[i - 1][1] if i else 0)
+    want = dict({k: 0 for k in counts}, vit_attention=VIT_ATTN_LAUNCHES * forwards)
+    if counts != want or by_kind != {"global": 4, "window": 8}:
+        raise AssertionError(f"vit_attention: launches {counts} over {forwards} ViTDet-B "
+                             f"forwards, the first by block kind {by_kind}; want {want}, 4 "
+                             f"global and 8 window")
+    log(f"vit_attention: ViTDet-B at {side}², B{fb} bf16: {fb / fwd_s:.2f} img/s ({1e3 * fwd_s:.2f} ms "
+        f"a forward), launches a forward {by_kind}")
+    del vit, x
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, forward_ms=1e3 * fwd_s, **total), counts
 
 
 def _cells_per_bin(rois, scale, out_size, sampling_ratio, pool_from, h, w):
@@ -548,6 +678,7 @@ def phase_reference(device):
 
     cfg = Config.fromfile(os.path.join(REPO, "configs", "nuhtc", "htc_lite_tiny_synthetic.py"))
     cfg.model.backbone.update(embed_dims=96, num_heads=[3, 6, 12, 24])
+    cfg.model.neck.update(in_channels=[96, 192, 384, 768])  # the neck takes the stages' widths
     img = torch.from_numpy(np.random.RandomState(0).randn(2, 128, 128, 3).astype(np.float32))
     for tier in ("block", "attn"):
         model = build_detector(cfg.model, cfg.model.get("test_cfg"), 1.0, swin_kernel=tier)
@@ -568,11 +699,12 @@ def phase_reference(device):
 def kernel_counters():
     from nuhtc_tpu_torch.ops.components import component_stats
     from nuhtc_tpu_torch.ops.roi_align import roi_align, roi_align_sum_backward
+    from nuhtc_tpu_torch.ops.vit_attention import vit_attention
     from nuhtc_tpu_torch.ops.window_block import window_attention, window_block
 
     return dict(window_block=window_block, window_attention=window_attention,
                 component_stats=component_stats, roi_align=roi_align,
-                roi_align_backward=roi_align_sum_backward)
+                roi_align_backward=roi_align_sum_backward, vit_attention=vit_attention)
 
 
 def reset_counts():
@@ -587,10 +719,11 @@ def read_counts():
 def check_counts(path, counts, forwards, swin_counter):
     """Per forward: 12 launches of the tier's Swin kernel and none of the
     other's, 4 of roi_align (one per cascade stage), at least one of
-    component_stats."""
+    component_stats, none of the ViT's attention."""
     other = "window_attention" if swin_counter == "window_block" else "window_block"
     ok = (counts[swin_counter] == 12 * forwards and counts[other] == 0
-          and counts["roi_align"] == 4 * forwards and counts["component_stats"] >= forwards)
+          and counts["roi_align"] == 4 * forwards and counts["component_stats"] >= forwards
+          and counts["vit_attention"] == 0)
     if not ok:
         raise AssertionError(f"{path}: kernel launches over {forwards} forwards: {counts}")
 
@@ -2582,6 +2715,7 @@ VITDET_B = dict(img_size=512, patch_size=16, embed_dims=768, depth=12, num_heads
                 window_block_indexes=(0, 1, 3, 4, 6, 7, 9, 10), pretrain_img_size=224,
                 pretrain_use_cls_token=True, out_every=3)
 VIT_SIDE = 512
+VIT_ATTN_LAUNCHES = 12  # ops/vit_attention.py a bf16 ViTDet-B forward: 4 global, 8 window
 # The ViT and ViT_FPN in bf16 against f32 plain on the same bf16-rounded
 # weights and input, bound derived before the first run (PERF.md §6):
 # bf16 keeps 8 bits (u = 2^-8); each product accumulates in f32 and rounds
@@ -2642,14 +2776,72 @@ def _normalized_tiles(rng, n, side, device, dtype):
     return torch.from_numpy(x).to(device, dtype)
 
 
+def _backbones_vit(device, rng):
+    """phase_backbones (a): ``ViT`` at VITDET_B with ``ViT_FPN`` in bf16 on
+    the card against the same bf16-rounded weights and input in f32 on the
+    host (the card runs a ViT's attention only through the bf16 kernel).
+    Returns the f32 pyramid, on the card."""
+    import copy
+
+    import torch
+    from nuhtc_tpu_torch.models.backbones import ViT
+    from nuhtc_tpu_torch.models.build import init_random_weights
+    from nuhtc_tpu_torch.models.extra_heads import ViT_FPN
+
+    reset_counts()
+    vit = _vit_weights(ViT(**VITDET_B), 0).eval()
+    fpn = ViT_FPN(in_channels=VITDET_B["embed_dims"], out_channels=FPN_C).eval()
+    init_random_weights(fpn, torch.Generator().manual_seed(1))
+    vit16, fpn16 = vit.to(device, torch.bfloat16), fpn.to(device, torch.bfloat16)
+    x16 = _normalized_tiles(rng, BATCH, VIT_SIDE, device, torch.bfloat16)
+
+    def vit_forward(model, neck, x):
+        with torch.no_grad():
+            feats = model(x)
+            return feats, neck(feats)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    vit_s, (feats16, pyr16) = _timed(lambda: vit_forward(vit16, fpn16, x16), VIT_RUNS)
+    vit_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    vit32, fpn32 = copy.deepcopy(vit16).float().cpu(), copy.deepcopy(fpn16).float().cpu()
+    feats32, pyr32 = vit_forward(vit32, fpn32, x16.float().cpu())
+    torch.cuda.synchronize()
+    rows = []
+    for name, got, want in ([(f"vit.{i}", g, w) for i, (g, w) in enumerate(zip(feats16, feats32))]
+                            + [(f"fpn.{i}", g, w) for i, (g, w) in enumerate(zip(pyr16, pyr32))]):
+        d = got.float().cpu() - want
+        rel_rms = (d.norm() / want.norm()).item()
+        rel_max = (d.abs().max() / want.abs().max()).item()
+        rows.append((name, tuple(want.shape), rel_rms, rel_max))
+        if not (np.isfinite(rel_rms) and rel_rms <= VIT_REL_RMS_TOL and rel_max <= VIT_MAX_TOL):
+            raise AssertionError(f"backbones (a) {name}: bf16 vs f32 plain rel rms {rel_rms:.5f}"
+                                 f" (≤ {VIT_REL_RMS_TOL}), max {rel_max:.5f} (≤ {VIT_MAX_TOL})")
+    if [r[1] for r in rows[-4:]] != [(BATCH, VIT_SIDE // s, VIT_SIDE // s, FPN_C)
+                                     for s in (4, 8, 16, 32)]:
+        raise AssertionError(f"backbones (a): ViT_FPN shapes {[r[1] for r in rows[-4:]]}")
+    vit_counts = read_counts()
+    want = dict({k: 0 for k in vit_counts}, vit_attention=VIT_ATTN_LAUNCHES * (VIT_RUNS + 1))
+    if vit_counts != want:
+        raise AssertionError(f"backbones (a): the ViT's launches {vit_counts}, want {want} "
+                             f"({VIT_ATTN_LAUNCHES} a bf16 forward, none in f32)")
+    log(f"backbones (a) ViTDet-B (embed 768, depth 12, 12 heads, window 14 + 4 global, rel pos)"
+        f" + ViT_FPN 64, B{BATCH} {VIT_SIDE}² bf16: {BATCH / vit_s:.2f} img/s "
+        f"({1e3 * vit_s:.2f} ms a forward), peak {vit_peak:.2f} GiB; bf16 vs f32 plain "
+        f"(rel rms, max rel to the map's largest; bounds {VIT_REL_RMS_TOL}, {VIT_MAX_TOL}): "
+        + ", ".join(f"{n} {s[1]}² {r:.5f} {m:.5f}" for n, s, r, m in rows))
+    del vit, vit16, vit32, fpn16, fpn32, feats16, feats32, pyr16, x16
+    torch.cuda.empty_cache()
+    return [p.to(device) for p in pyr32]
+
+
 def phase_backbones(device, tmp, ctx):
     """The alternative backbones, ViT_FPN, the RoI-extractor variants and
     the log, anchor, dataset-browse and end-to-end golden tools.
     (a) ``ViT`` at ViTDet-B's published widths (VITDET_B) with ``ViT_FPN``
     at the PanNuke config's 64 channels, random weights from seed 0, B16
     tiles of 512² (32² tokens; windowed blocks padded to 42², 9 windows) in
-    bf16 against f32 plain on the same bf16-rounded weights and input
-    (VIT_REL_RMS_TOL, VIT_MAX_TOL); img/s, the peak memory. (b) ``SwinUnet``
+    bf16 against f32 plain on the host on the same bf16-rounded weights and
+    input (VIT_REL_RMS_TOL, VIT_MAX_TOL); img/s, the peak memory. (b) ``SwinUnet``
     at its defaults (embed 96, depths 2-2-2-2, heads 3-6-12-24, window 7),
     B16 of 512² in bf16: 11 K1 launches a forward and no K2, against the
     same weights through tier "none" within UNET_TOL of each output's
@@ -2674,9 +2866,8 @@ def phase_backbones(device, tmp, ctx):
 
     import torch
     from nuhtc_tpu_torch.models import roi_extractor_variants as rev
-    from nuhtc_tpu_torch.models.backbones import SwinUnet, ViT
+    from nuhtc_tpu_torch.models.backbones import SwinUnet
     from nuhtc_tpu_torch.models.build import init_random_weights
-    from nuhtc_tpu_torch.models.extra_heads import ViT_FPN
     from nuhtc_tpu_torch.ops import roi_align as ra
     from nuhtc_tpu_torch.tools.analysis_tools import (
         analyze_logs, analyze_wsi_logs, optimize_anchors)
@@ -2689,47 +2880,7 @@ def phase_backbones(device, tmp, ctx):
     rng = np.random.RandomState(13)
 
     # (a) ViTDet-B + ViT_FPN, bf16 against f32 plain
-    reset_counts()
-    vit = _vit_weights(ViT(**VITDET_B), 0).eval()
-    fpn = ViT_FPN(in_channels=VITDET_B["embed_dims"], out_channels=FPN_C).eval()
-    init_random_weights(fpn, torch.Generator().manual_seed(1))
-    vit16, fpn16 = vit.to(device, torch.bfloat16), fpn.to(device, torch.bfloat16)
-    x16 = _normalized_tiles(rng, BATCH, VIT_SIDE, device, torch.bfloat16)
-
-    def vit_forward(model, neck, x):
-        with torch.no_grad():
-            feats = model(x)
-            return feats, neck(feats)
-
-    torch.cuda.reset_peak_memory_stats(device)
-    vit_s, (feats16, pyr16) = _timed(lambda: vit_forward(vit16, fpn16, x16), VIT_RUNS)
-    vit_peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    vit32, fpn32 = copy.deepcopy(vit16).float(), copy.deepcopy(fpn16).float()
-    feats32, pyr32 = vit_forward(vit32, fpn32, x16.float())
-    torch.cuda.synchronize()
-    rows = []
-    for name, got, want in ([(f"vit.{i}", g, w) for i, (g, w) in enumerate(zip(feats16, feats32))]
-                            + [(f"fpn.{i}", g, w) for i, (g, w) in enumerate(zip(pyr16, pyr32))]):
-        d = got.float() - want
-        rel_rms = (d.norm() / want.norm()).item()
-        rel_max = (d.abs().max() / want.abs().max()).item()
-        rows.append((name, tuple(want.shape), rel_rms, rel_max))
-        if not (np.isfinite(rel_rms) and rel_rms <= VIT_REL_RMS_TOL and rel_max <= VIT_MAX_TOL):
-            raise AssertionError(f"backbones (a) {name}: bf16 vs f32 plain rel rms {rel_rms:.5f}"
-                                 f" (≤ {VIT_REL_RMS_TOL}), max {rel_max:.5f} (≤ {VIT_MAX_TOL})")
-    if [r[1] for r in rows[-4:]] != [(BATCH, VIT_SIDE // s, VIT_SIDE // s, FPN_C)
-                                     for s in (4, 8, 16, 32)]:
-        raise AssertionError(f"backbones (a): ViT_FPN shapes {[r[1] for r in rows[-4:]]}")
-    vit_counts = read_counts()
-    if any(vit_counts.values()):
-        raise AssertionError(f"backbones (a): the ViT launched a hand kernel: {vit_counts}")
-    log(f"backbones (a) ViTDet-B (embed 768, depth 12, 12 heads, window 14 + 4 global, rel pos)"
-        f" + ViT_FPN 64, B{BATCH} {VIT_SIDE}² bf16: {BATCH / vit_s:.2f} img/s "
-        f"({1e3 * vit_s:.2f} ms a forward), peak {vit_peak:.2f} GiB; bf16 vs f32 plain "
-        f"(rel rms, max rel to the map's largest; bounds {VIT_REL_RMS_TOL}, {VIT_MAX_TOL}): "
-        + ", ".join(f"{n} {s[1]}² {r:.5f} {m:.5f}" for n, s, r, m in rows))
-    del vit, vit16, vit32, fpn16, fpn32, feats16, feats32, pyr16, x16
-    torch.cuda.empty_cache()
+    pyr32 = _backbones_vit(device, rng)
 
     # (b) SwinUnet through K1 against tier "none"
     unet = SwinUnet(kernel="block").eval()
@@ -3345,7 +3496,7 @@ def phase_semi(device, tmp):
     def expect(n_steps, n_evals):
         return dict(window_block=12 * (n_steps + n_evals), window_attention=0,
                     component_stats=0, roi_align=24 * n_steps + 8 * n_evals,
-                    roi_align_backward=12 * n_steps)
+                    roi_align_backward=12 * n_steps, vit_attention=0)
 
     if counts_b != expect(steps, evals) or counts_r != expect(SEMI_ITERS, evals // 2):
         raise AssertionError(f"semi (b) launches: {counts_b} (want {expect(steps, evals)}), "
@@ -3542,6 +3693,7 @@ def main() -> int:
     k3 = phase_k3(device)
     k4 = phase_k4(device)
     k2 = phase_swin_kernel(device, "attn")
+    vit_attn, vit_counts = phase_vit_attention(device)
     phase_reference(device)
     wsi = phase_slice(device)
     strict = phase_strict(device)
@@ -3559,17 +3711,18 @@ def main() -> int:
         bench = phase_benchmark(device, tmp, context)
     with tempfile.TemporaryDirectory() as tmp:
         semi_serve, semi_train = phase_semi(device, tmp)
-    paths = dict(wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
+    paths = dict(vit=vit_counts, wsi=wsi, strict=strict, slide=slide, embed=embed, eval=evaluation, patch=patch,
                  robustness=robustness, train=train, train_configs=train_configs,
                  **parallel, **variants, **backbones, **bench, semi_serve=semi_serve,
                  semi_train=semi_train)
 
     def entry(name, source, replaces, measured):
         # launches: over the driven paths; no single PyTorch call computes K1-K4
+        # (the ViT attention's library_ms: sdpa with the bias as a mask, a yardstick)
         by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": f"nuhtc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, **measured, "library_ms": None}
+                "launches_by_path": by_path, "library_ms": None, **measured}
 
     pallas = "nuhtc_tpu/ops/window_attention_pallas.py"
     kernels_line = [
@@ -3580,6 +3733,8 @@ def main() -> int:
         # the JAX package trains through XLA's autodiff of its exact RoIAlign
         entry("roi_align_backward", "roi_align.cu", "nuhtc_tpu/ops/roi_align.py:276",
               k4_backward),
+        # the JAX package's ViT attention is plain jnp (nuhtc_tpu/models/backbones.py)
+        entry("vit_attention", "vit_attention.cu", "none", vit_attn),
     ]
     if any(k["launches"] < 1 for k in kernels_line):
         raise AssertionError(f"a kernel was never launched on the main paths: {kernels_line}")

@@ -22,13 +22,13 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "nuhtc_tpu_torch")
-SOURCES = ("window_block.cu", "component_stats.cu", "roi_align.cu")
-HEADERS = ("wgmma_sm90.cuh",)  # included by window_block.cu
+SOURCES = ("window_block.cu", "component_stats.cu", "roi_align.cu", "vit_attention.cu")
+HEADERS = ("wgmma_sm90.cuh",)  # included by window_block.cu and vit_attention.cu
 # -Xptxas -v: registers, spills and shared memory of each kernel go to the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types (pointers, ints, the stream last)
 _SIGNATURES = {
     "window_block_launch": [_P] * 16 + [_I] * 7 + [_F, _I, _P],
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "roi_align_sum_backward_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "component_stats_launch": [_P] * 6 + [_I] * 4 + [_P],
     "component_stats_strips": [_I, _I],  # returns a size, not an error code
+    "vit_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 4 + [_F, _P],
 }
 
 

@@ -7,17 +7,22 @@ grid (the cls token dropped), windowed attention (no shift) on the blocks in
 decomposed relative position bias, features after every ``out_every``-th
 block. Its keys are the reference's: ``patch_embed.proj``, ``pos_embed``,
 ``blocks.{i}.{norm1,attn.{qkv,proj,rel_pos_h,rel_pos_w},norm2,mlp.{fc1,fc2}}``.
-Attention and MLP are plain PyTorch products (the JAX package runs them in
-XLA; no TPU kernel computes them), the softmax in f32. Each block's
-attention runs inside a span, ``model.vit_window_attn`` or
-``model.vit_global_attn``, and counts the bytes of the (b, heads, n, n)
-score tensors it writes, at the dtype it writes them, in
-``vit.window_score_bytes`` or ``vit.global_score_bytes``
-(``utils/profiling.py``). The relative-position indices and the position
-table's resize matrix (one for both axes of the square grid) are
-non-persistent buffers, built with the module for its ``img_size``: they
-follow ``.to()`` and stay out of the state dict, and a forward copies no
-constant to the device.
+The MLP is plain PyTorch (the JAX package runs it in XLA; no TPU kernel
+computes it). The attention of a CUDA input with head dim 64 runs the hand
+kernel ``ops/vit_attention.py`` (q·kᵀ, the bias from the tables, an f32
+online softmax and p·v, no score or bias tensor in device memory), which
+raises on a dtype other than bf16 or a grid over 64 a side. A forward that
+autograd records (the kernel has no backward), a CPU input or another head
+dim runs plain PyTorch products with the softmax in f32. Each block's attention
+runs inside a span, ``model.vit_window_attn`` or ``model.vit_global_attn``,
+counts its call in ``vit.attn_fused`` or ``vit.attn_plain``, and counts the
+bytes of the (b, heads, n, n) score tensors it writes, at the dtype it
+writes them (0 on the kernel's path), in ``vit.window_score_bytes`` or
+``vit.global_score_bytes`` (``utils/profiling.py``). The relative-position
+indices and the position table's resize matrix (one for both axes of the
+square grid) are non-persistent buffers, built with the module for its
+``img_size``: they follow ``.to()`` and stay out of the state dict, and a
+forward copies no constant to the device.
 
 The absolute-position resize is the JAX package's, not torch's bicubic:
 ``jax.image.resize(..., "cubic")`` is Keys' cubic with a = -0.5, drops the
@@ -45,6 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from nuhtc_tpu_torch.models.swin import PatchEmbed, SwinBlock, SwinStage
+from nuhtc_tpu_torch.ops.vit_attention import HEAD_DIMS as VIT_HEAD_DIMS
+from nuhtc_tpu_torch.ops.vit_attention import vit_attention
 from nuhtc_tpu_torch.registry import BACKBONES
 from nuhtc_tpu_torch.utils.profiling import count, span
 
@@ -129,19 +136,39 @@ class ViTAttention(nn.Module):
             self.register_buffer("rel_index_h", rel_pos_index(input_size[0]), persistent=False)
             self.register_buffer("rel_index_w", rel_pos_index(input_size[1]), persistent=False)
 
+    def _check_tables(self, h: int, w: int) -> None:
+        if self.rel_pos_h.shape[0] != 2 * h - 1 or self.rel_pos_w.shape[0] != 2 * w - 1:
+            raise ValueError(f"ViTAttention: relative position tables "
+                             f"{tuple(self.rel_pos_h.shape)}, {tuple(self.rel_pos_w.shape)} "
+                             f"do not fit a {h}×{w} grid")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C) → (B, H, W, C)."""
+        """x (B, H, W, C) → (B, H, W, C). A CUDA input of a head dim the
+        kernel takes runs ``ops/vit_attention.py`` (no score or bias tensor
+        written), which raises on what else the kernel does not take (a dtype
+        other than bf16, a grid over 64 a side). The kernel has no backward,
+        so a forward that autograd records takes the plain path, as does a
+        CPU input or another head dim."""
         b, h, w, c = x.shape
         nh = self.num_heads
         hd = c // nh
-        q, k, v = self.qkv(x.reshape(b, h * w, c)).reshape(b, h * w, 3, nh, hd).unbind(2)
+        qkv = self.qkv(x.reshape(b, h * w, c))
+        tables = (self.rel_pos_h, self.rel_pos_w) if self.use_rel_pos else ()
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (qkv, *tables))
+        if qkv.is_cuda and hd in VIT_HEAD_DIMS and not grad:
+            if self.use_rel_pos:
+                self._check_tables(h, w)
+            rel = tuple(t.to(qkv).contiguous() for t in tables) or (None, None)
+            out = vit_attention(qkv, b, h, w, nh, *rel, hd ** -0.5)
+            count("vit.attn_fused")
+            count(self.counter, 0)  # no (b, nh, n, n) tensor written
+            return self.proj(out).reshape(b, h, w, c)
+        count("vit.attn_plain")
+        q, k, v = qkv.reshape(b, h * w, 3, nh, hd).unbind(2)
         attn = torch.einsum("bnhd,bmhd->bhnm", q * hd ** -0.5, k)
         written = _nbytes(attn)  # of the (b, nh, n, n) tensors
         if self.use_rel_pos:
-            if self.rel_pos_h.shape[0] != 2 * h - 1 or self.rel_pos_w.shape[0] != 2 * w - 1:
-                raise ValueError(f"ViTAttention: relative position tables "
-                                 f"{tuple(self.rel_pos_h.shape)}, {tuple(self.rel_pos_w.shape)} "
-                                 f"do not fit a {h}×{w} grid")
+            self._check_tables(h, w)
             rq = q.reshape(b, h, w, nh, hd)
             bias_h = torch.einsum("bhwnd,hkd->bnhwk", rq, self.rel_pos_h[self.rel_index_h].to(q))
             bias_w = torch.einsum("bhwnd,wkd->bnhwk", rq, self.rel_pos_w[self.rel_index_w].to(q))
