@@ -249,6 +249,8 @@ import time
 
 import numpy as np
 
+from portbench.work.roofline import PEAK_BF16, PEAK_F32, block_bound, bound_ms
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "nuhtc", "htc_lite_swin_fpn_pannuke.py")
 BATCH = 16
@@ -257,31 +259,11 @@ TILE = 256
 STAGES = ((133, 96, 3, 2), (70, 192, 6, 2), (35, 384, 12, 6), (21, 768, 24, 2))
 K1_TOL = 0.05
 K2_TOL = 0.05
-# published peaks of one H100 SXM: dense bf16 tensor cores, f32 outside them, HBM
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 ROI_R, MASK_R, FPN_C = 1512, 500, 64
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def bound_ms(flops: float, peak: float, nbytes: float):
-    """(least time in ms, what bounds it) for this much work on the card."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
-
-
-def block_bound(side, c, mode: str):
-    """Work of one Swin block on a (BATCH, side, side, c) map. "block" (K1):
-    qkv, proj, fc1, fc2 (24·M·C² FLOP) and attention (4·M·49·C); two maps
-    read, one written, weights read once. "attn" (K2): qkv and proj
-    (8·M·C²) and attention; one map read, one written."""
-    m = BATCH * side * side
-    attn = 4.0 * m * 49 * c
-    if mode == "block":
-        return 24.0 * m * c * c + attn, 3 * m * c * 2 + 12 * c * c * 2
-    return 8.0 * m * c * c + attn, 2 * m * c * 2 + 4 * c * c * 2
 
 
 def k1_inputs(side, c, nh, gen, device):
@@ -374,8 +356,8 @@ def phase_swin_kernel(device, which: str):
             t_k = cuda_ms(lambda: kernel(*maps, *params, **kw))
             t_p = cuda_ms(lambda: plain(*maps, **inp, **kw))
             t_u = cuda_ms(lambda: yard(*xh))
-            b_ms, b_by = bound_ms(block_bound(side, c, which)[0], PEAK_BF16,
-                                  block_bound(side, c, which)[1])
+            b_ms, b_by = bound_ms(block_bound(BATCH, side, c, which)[0], PEAK_BF16,
+                                  block_bound(BATCH, side, c, which)[1])
             log(f"{name} {BATCH}x{side}x{side}x{c} heads {nh} shift {shift}: "
                 f"max_abs_err {e:.5f} kernel {t_k:.3f} ms plain {t_p:.3f} ms "
                 f"unfused bf16 {t_u:.3f} ms bound {b_ms:.4f} ms ({b_by})")
@@ -384,8 +366,8 @@ def phase_swin_kernel(device, which: str):
             plain_ms += t_p * depth / 2
             unfused_ms += t_u * depth / 2
         del inp, maps, pack, params
-    flops = sum(block_bound(side, c, which)[0] * d for side, c, _, d in STAGES)
-    nbytes = sum(block_bound(side, c, which)[1] * d for side, c, _, d in STAGES)
+    flops = sum(block_bound(BATCH, side, c, which)[0] * d for side, c, _, d in STAGES)
+    nbytes = sum(block_bound(BATCH, side, c, which)[1] * d for side, c, _, d in STAGES)
     bound, by = bound_ms(flops, PEAK_BF16, nbytes)
     log(f"{name} per forward (12 blocks): kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
         f"unfused bf16 sequence (yardstick) {unfused_ms:.3f} ms bound {bound:.4f} ms ({by})")
@@ -3666,6 +3648,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from nuhtc_tpu_torch import kernels
+        from nuhtc_tpu_torch.apis.inference import no_tf32
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -3676,8 +3659,7 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()

@@ -247,6 +247,13 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> List[str]:
     return unmatched
 
 
+def no_tf32() -> None:
+    """f32 products stay f32 on the card: no TF32 in matmuls or cuDNN
+    convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def resolve_device(device: Optional[str | torch.device] = None,
                    caller: str = "init_detector") -> torch.device:
     """``device``, or the first CUDA device when it is None; raises when
@@ -279,9 +286,7 @@ def init_detector(config: str | Config, checkpoint: Optional[str] = None,
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     device = resolve_device(device, "init_detector")
     dtype = dtype or (torch.bfloat16 if device.type == "cuda" else torch.float32)
-    # f32 products stay f32: no TF32 in matmuls or cuDNN convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     if scale_factor is None:
         scale_factor = float(cfg.get("scale_factor", 2.0))
     model = build_detector(cfg.model, cfg.model.get("test_cfg"), scale_factor,

@@ -1,11 +1,14 @@
-"""Builds and loads the port's hand-written CUDA kernels (``csrc/*.cu``).
+"""Builds and loads the port's native code: the hand-written CUDA kernels
+(``csrc/*.cu``, ``load()``) and the host C library (``csrc/rle.c`` and
+``csrc/contours.c``, ``host()``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
+The kernels are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per
 source, all started together) and linked into one shared library with a
-plain C interface, at first use, into ``build/nuhtc_tpu_torch/`` at the root
-of the checkout (a directory ``.gitignore`` lists). The library's name
-carries a hash of the sources, so an edited source builds anew. Nothing here
-runs at import time: this package is imported on hosts without a GPU.
+plain C interface; the host library is compiled by the host's C compiler.
+Each is built at first use into ``build/nuhtc_tpu_torch/`` at the root of
+the checkout (a directory ``.gitignore`` lists), under a name that carries a
+hash of its sources, so an edited source builds anew. Nothing here runs at
+import time: this package is imported on hosts without a GPU.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+from typing import Callable, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -27,6 +31,8 @@ HEADERS = ("wgmma_sm90.cuh",)  # included by window_block.cu and vit_attention.c
 # -Xptxas -v: registers, spills and shared memory of each kernel go to the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCES = ("rle.c", "contours.c")
+_COMPILERS = ("cc", "gcc", "clang")  # the first one installed builds the host library
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points and their argument types (pointers, ints, the stream last)
@@ -39,6 +45,43 @@ _SIGNATURES = {
     "component_stats_strips": [_I, _I],  # returns a size, not an error code
     "vit_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 4 + [_F, _P],
 }
+# the host library's functions: (return type, argument types)
+_HOST_SIGNATURES = {
+    "rle_encode": (_L, [_P, _L, _L, _P, _L]),
+    "rle_decode": (None, [_P, _L, _P, _L]),
+    "rle_iou": (None, [_P, _P, _P, _L, _P, _P, _P, _L, _P, _P]),
+    "rle_string_encode": (_L, [_P, _L, ctypes.c_char_p, _L]),
+    "rle_string_decode": (_L, [ctypes.c_char_p, _L, _P, _L]),
+    "contours_find": (_L, [_P, _L, _L, ctypes.c_int32, ctypes.c_int32, _P, _L]),
+}
+
+
+def _path(prefix: str, names: Sequence[str], salt: str = "") -> str:
+    """``BUILD_DIR/<prefix>_<digest>.so``, the digest that of the files
+    ``names`` under csrc/ and of ``salt``."""
+    h = hashlib.sha256()
+    for name in names:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(salt.encode())
+    return os.path.join(BUILD_DIR, f"{prefix}_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str, compile_to: Optional[Callable[[str, str], None]]) -> Optional[str]:
+    """``path`` once the library is there: unless it exists,
+    ``compile_to(out, tmp)`` writes it at ``out`` in a temporary directory
+    ``tmp`` beside it and it is moved into place whole. None where it does
+    not exist and there is nothing to build it with (``compile_to`` None)."""
+    if os.path.exists(path):
+        return path
+    if compile_to is None:
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, "lib.so")
+        compile_to(out, tmp)
+        os.replace(out, path)
+    return path
 
 
 def _nvcc() -> str:
@@ -53,39 +96,30 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libnuhtc_kernels_{h.hexdigest()[:16]}.so")
+    return _path("libnuhtc_kernels", SOURCES + HEADERS, " ".join(NVCC_FLAGS))
+
+
+def _nvcc_compile(out: str, tmp: str) -> None:
+    nvcc = _nvcc()
+    objects = [os.path.join(tmp, os.path.splitext(s)[0] + ".o") for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s), "-o", o],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objects)]
+    logs = [(s, p.communicate()[0], p.returncode) for s, p in zip(SOURCES, procs)]
+    failed = [f"{s} ({rc}):\n{log}" for s, log, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objects],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    with open(log_path(), "w") as f:
+        f.write("".join(log for _, log, _ in logs))
 
 
 def build() -> str:
     """Compiles the kernels unless a library for these sources exists."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objects = [os.path.join(tmp, os.path.splitext(s)[0] + ".o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, s), "-o", o],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objects)]
-        logs = [(s, p.communicate()[0], p.returncode) for s, p in zip(SOURCES, procs)]
-        failed = [f"{s} ({rc}):\n{out}" for s, out, rc in logs if rc != 0]
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        lib = os.path.join(tmp, "lib.so")
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        with open(log_path(), "w") as f:
-            f.write("".join(out for _, out, _ in logs))
-        os.replace(lib, path)
-    return path
+    return _build(library_path(), _nvcc_compile)
 
 
 def log_path() -> str:
@@ -118,6 +152,34 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host() -> Optional[ctypes.CDLL]:
+    """The host C library, built on first call by the first of ``_COMPILERS``
+    installed and loaded once; None where the library is not built and no C
+    compiler is installed (the callers then run their Python versions). A
+    compiler that is there and fails raises with its output: a broken build
+    is never passed over."""
+    cc = next((c for c in map(shutil.which, _COMPILERS) if c), None)
+    srcs = [os.path.join(CSRC, name) for name in HOST_SOURCES]
+
+    def compile_to(out: str, tmp: str) -> None:
+        res = subprocess.run([cc, "-O2", "-shared", "-fPIC", *srcs, "-o", out],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cc} failed to build {', '.join(srcs)} ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+
+    path = _build(_path("libhost", HOST_SOURCES), compile_to if cc else None)
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    for name, (restype, argtypes) in _HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
 
 

@@ -161,39 +161,6 @@ class NuHTC(nn.Module):
             probs = probs / float(self.num_stages)
         return probs.reshape(b, d, 28, 28)
 
-    def _multiclass_nms(self, boxes, scores, valid) -> Dict[str, torch.Tensor]:
-        """boxes (B, P, 4), scores (B, P, C+1), valid (B, P) → padded top
-        ``rcnn_max_per_img`` detections per image."""
-        b, p, _ = boxes.shape
-        c = self.num_classes
-        cls_scores = scores[..., :c]
-        cand_scores = cls_scores.reshape(b, p * c)
-        cand_valid = (cand_scores > self.rcnn_score_thr) & valid.repeat_interleave(c, dim=1)
-        dev = boxes.device
-        cand_labels = torch.arange(c, dtype=torch.int32, device=dev).repeat(p)
-        cand_roi = torch.arange(p, device=dev).repeat_interleave(c)
-        k = min(self.nms_candidates, p * c)
-        top_scores, top_idx = nms_ops.sort_desc(
-            torch.where(cand_valid, cand_scores, nms_ops.NEG_INF))
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        top_valid = top_scores > self.rcnn_score_thr
-        top_roi = cand_roi[top_idx]  # (B, k)
-        top_boxes = boxes.gather(1, top_roi[..., None].expand(-1, -1, 4))
-        top_labels = cand_labels[top_idx]
-        bound = torch.where(top_valid[..., None], top_boxes, 0.0).amax(dim=(1, 2))
-        ob, os_, oi, ov = nms_ops.batched_nms(
-            top_boxes, torch.where(top_valid, top_scores, nms_ops.NEG_INF), top_labels,
-            top_valid, self.rcnn_nms_iou, self.rcnn_max_per_img, coord_bound=bound)
-        roi = top_roi.gather(1, oi)
-        probs = cls_scores.gather(1, roi[..., None].expand(-1, -1, c))
-        return {
-            "boxes": ob,
-            "scores": torch.where(ov, os_, 0.0),
-            "labels": torch.where(ov, top_labels.gather(1, oi), -1),
-            "probs": torch.where(ov[..., None], probs, 0.0),
-            "valid": ov,
-        }
-
     def features(self, img: torch.Tensor, generator: torch.Generator | None = None
                  ) -> Tuple[torch.Tensor, ...]:
         """img (B, H, W, 3) normalized → the 4-level FPN pyramid, (B, h, w, C)
@@ -254,7 +221,10 @@ class NuHTC(nn.Module):
         bboxes = box_ops.delta2bbox(rois, bbox_pred, stds=STAGE_STDS[self.num_stages - 1],
                                     max_shape=img_shape)
         with span("model.multiclass_nms"):
-            det = self._multiclass_nms(bboxes / self.scale_factor, scores_act, rois_valid)
+            det = nms_ops.multiclass_nms(
+                bboxes / self.scale_factor, scores_act, rois_valid, self.num_classes,
+                self.rcnn_score_thr, self.rcnn_nms_iou, self.rcnn_max_per_img,
+                self.nms_candidates)
         with span("model.mask_head"):
             det["mask_probs"] = self._mask_forward(feats, semantic_feat,
                                                    det["boxes"] * self.scale_factor)

@@ -155,48 +155,15 @@ class MaskRCNN(nn.Module):
         boxes_pc = box_ops.delta2bbox(rois_pc, reg.reshape(b, p, c, 4), stds=BBOX_STDS,
                                       max_shape=img_shape)
         with span("model.multiclass_nms"):
-            det = self._multiclass_nms(boxes_pc / self.scale_factor, scores, prop_valid)
+            det = nms_ops.multiclass_nms(
+                boxes_pc / self.scale_factor, scores, prop_valid, c, self.rcnn_score_thr,
+                self.rcnn_nms_iou, self.rcnn_max_per_img, self.nms_candidates)
         with span("model.mask_head"):
             mask_logits = self._mask_forward(feats, det["boxes"] * self.scale_factor)
             lbl = det["labels"].clamp(0, c - 1).long()
             sel = mask_logits.gather(-1, lbl[:, :, None, None, None].expand(-1, -1, 28, 28, 1))
             det["mask_probs"] = torch.sigmoid(sel[..., 0])
         return det
-
-    def _multiclass_nms(self, boxes_pc, scores, valid) -> Dict[str, torch.Tensor]:
-        """boxes_pc (B, P, C, 4) class-specific, scores (B, P, C+1), valid
-        (B, P) → the top ``rcnn_max_per_img`` detections per image. The
-        candidates are the top ``nms_candidates`` of the P·C (roi, class)
-        pairs; a stable sort fills slots past the valid ones lowest index
-        first, as ``lax.top_k``."""
-        b, p, c, _ = boxes_pc.shape
-        cls_scores = scores[..., :c]
-        cand_scores = cls_scores.reshape(b, p * c)
-        cand_valid = (cand_scores > self.rcnn_score_thr) & valid.repeat_interleave(c, dim=1)
-        dev = boxes_pc.device
-        cand_labels = torch.arange(c, dtype=torch.int32, device=dev).repeat(p)
-        cand_roi = torch.arange(p, device=dev).repeat_interleave(c)
-        k = min(self.nms_candidates, p * c)
-        top_scores, top_idx = nms_ops.sort_desc(
-            torch.where(cand_valid, cand_scores, nms_ops.NEG_INF))
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        top_valid = top_scores > self.rcnn_score_thr
-        top_boxes = boxes_pc.reshape(b, p * c, 4).gather(1, top_idx[..., None].expand(-1, -1, 4))
-        top_labels = cand_labels[top_idx]
-        top_roi = cand_roi[top_idx]
-        bound = torch.where(top_valid[..., None], top_boxes, 0.0).amax(dim=(1, 2))
-        ob, os_, oi, ov = nms_ops.batched_nms(
-            top_boxes, torch.where(top_valid, top_scores, nms_ops.NEG_INF), top_labels,
-            top_valid, self.rcnn_nms_iou, self.rcnn_max_per_img, coord_bound=bound)
-        roi = top_roi.gather(1, oi)
-        probs = cls_scores.gather(1, roi[..., None].expand(-1, -1, c))
-        return {
-            "boxes": ob,
-            "scores": torch.where(ov, os_, 0.0),
-            "labels": torch.where(ov, top_labels.gather(1, oi), -1),
-            "probs": torch.where(ov[..., None], probs, 0.0),
-            "valid": ov,
-        }
 
     # ------------------------------------------------------------------ #
     def _assign_sample(self, generator, gt_boxes, gt_labels, gt_valid, props, props_valid):

@@ -5,8 +5,8 @@ geometric functions. The port carries its own, each written to give the
 result ``cv2`` (5.0.0) gives, point for point:
 
 - ``find_contours``: border following after Suzuki and Abe (1985), in
-  the host C library (``csrc/contours.c``, built with ``ops/rle.py``'s) or,
-  where no C compiler is installed, in Python (``find_contours_plain``),
+  the host C library (``csrc/contours.c``, ``kernels.host()``) or, where
+  no C compiler is installed, in Python (``find_contours_plain``),
   with OpenCV's conventions: the image is padded by a zero frame (so pixels on
   the image's edge are foreground like any other), an outer border starts at
   its first pixel in raster order and runs counter-clockwise on the screen
@@ -40,7 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from nuhtc_tpu_torch.ops.rle import native_library
+from nuhtc_tpu_torch import kernels
 from nuhtc_tpu_torch.utils.profiling import count
 
 # the values OpenCV gives these names
@@ -108,11 +108,11 @@ def find_contours(mask: np.ndarray, mode: int = RETR_TREE, method: int = CHAIN_A
     non-zero pixel is foreground.
 
     The host C library (``csrc/contours.c``) follows the borders and orders
-    the tree where ``ops.rle.NATIVE`` gives one, else ``find_contours_plain``
+    the tree wherever a C compiler is installed, else ``find_contours_plain``
     does; the counters ``contours.native`` and ``contours.plain`` count the
     calls each took."""
     mask = _checked(mask, mode, method)
-    lib = native_library()
+    lib = kernels.host()
     if lib is None:
         count("contours.plain")
         return _find_plain(mask, mode, method)

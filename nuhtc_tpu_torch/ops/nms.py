@@ -10,6 +10,8 @@ longest suppression chain).
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from nuhtc_tpu_torch.ops.boxes import pairwise_iou
@@ -85,3 +87,45 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,
     out_boxes = torch.where(out_valid[..., None],
                             boxes.gather(1, out_idx[..., None].expand(-1, -1, 4)), 0.0)
     return out_boxes, out_scores, out_idx, out_valid
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                   num_classes: int, score_thr: float, iou: float, max_per_img: int,
+                   candidates: int) -> Dict[str, torch.Tensor]:
+    """A detector's last NMS. scores (B, P, C+1), valid (B, P); boxes (B, P,
+    4) shared by the classes of a roi, or (B, P, C, 4) one per class. The
+    candidates are the top ``candidates`` of the P·C (roi, class) pairs
+    scoring above ``score_thr`` (a stable sort fills slots past the valid
+    ones lowest index first, as ``lax.top_k``); NMS per class at ``iou``
+    keeps the top ``max_per_img``. → padded boxes (B, D, 4), scores (B, D),
+    labels (B, D, -1 where invalid), probs (B, D, C), valid (B, D)."""
+    b, p = scores.shape[:2]
+    c = num_classes
+    cls_scores = scores[..., :c]
+    cand_scores = cls_scores.reshape(b, p * c)
+    cand_valid = (cand_scores > score_thr) & valid.repeat_interleave(c, dim=1)
+    dev = boxes.device
+    cand_labels = torch.arange(c, dtype=torch.int32, device=dev).repeat(p)
+    cand_roi = torch.arange(p, device=dev).repeat_interleave(c)
+    k = min(candidates, p * c)
+    top_scores, top_idx = sort_desc(torch.where(cand_valid, cand_scores, NEG_INF))
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    top_valid = top_scores > score_thr
+    top_roi = cand_roi[top_idx]  # (B, k)
+    if boxes.dim() == 3:  # a roi's box: gathered by roi
+        top_boxes = boxes.gather(1, top_roi[..., None].expand(-1, -1, 4))
+    else:  # a box per class: gathered by candidate
+        top_boxes = boxes.reshape(b, p * c, 4).gather(1, top_idx[..., None].expand(-1, -1, 4))
+    top_labels = cand_labels[top_idx]
+    bound = torch.where(top_valid[..., None], top_boxes, 0.0).amax(dim=(1, 2))
+    ob, os_, oi, ov = batched_nms(top_boxes, torch.where(top_valid, top_scores, NEG_INF),
+                                  top_labels, top_valid, iou, max_per_img, coord_bound=bound)
+    roi = top_roi.gather(1, oi)
+    probs = cls_scores.gather(1, roi[..., None].expand(-1, -1, c))
+    return {
+        "boxes": ob,
+        "scores": torch.where(ov, os_, 0.0),
+        "labels": torch.where(ov, top_labels.gather(1, oi), -1),
+        "probs": torch.where(ov[..., None], probs, 0.0),
+        "valid": ov,
+    }

@@ -3,16 +3,9 @@
 Equivalents of the pycocotools.mask functions the engine, the slide path and
 the evaluation use (encode/decode/area/toBbox/iou/merge), implemented from
 the RLE format spec: in numpy (the plain version, ``*_plain``), and in the
-port's small host C library (``csrc/rle.c``, with ``csrc/contours.c``, the
-border tracer of ``ops/contours.py``) that the host's C compiler builds at
-first use into ``build/nuhtc_tpu_torch/``. Both give the same results.
-
-Which one runs is ``NATIVE``'s say, for the RLE functions and the contour
-tracer alike: ``None`` (the default) takes the library wherever a C compiler
-is installed and the Python code where there is none; ``True`` requires the
-library; ``False`` is Python only. A compiler that is there and fails raises
-with its output in every mode but ``False``: a broken build is never passed
-over.
+port's host C library (``csrc/rle.c``, built and loaded by
+``kernels.host()``). Both give the same results. The library runs wherever
+a C compiler is installed, the numpy code where none is.
 
 RLE dict format matches pycocotools: {"size": [h, w], "counts": bytes}.
 """
@@ -20,82 +13,15 @@ RLE dict format matches pycocotools: {"size": [h, w], "counts": bytes}.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
-NATIVE: Optional[bool] = None
-_COMPILERS = ("cc", "gcc", "clang")
-HOST_SOURCES = ("rle.c", "contours.c")  # under csrc/, one library
-_lib_cache: Dict[str, ctypes.CDLL] = {}
-
-_U8P = ctypes.POINTER(ctypes.c_uint8)
-_U32P = ctypes.POINTER(ctypes.c_uint32)
-_I64P = ctypes.POINTER(ctypes.c_int64)
-_F64P = ctypes.POINTER(ctypes.c_double)
-_I64 = ctypes.c_int64
+from nuhtc_tpu_torch import kernels
 
 
-def _build_library() -> str:
-    """Compiles the host library's C sources unless a library for them
-    exists; returns its path, or "" when no C compiler is installed."""
-    from nuhtc_tpu_torch.kernels import BUILD_DIR, CSRC
-
-    srcs = [os.path.join(CSRC, name) for name in HOST_SOURCES]
-    h = hashlib.sha256()
-    for src in srcs:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    path = os.path.join(BUILD_DIR, f"libhost_{h.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path
-    cc = next((c for c in map(shutil.which, _COMPILERS) if c), None)
-    if cc is None:
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        out = os.path.join(tmp, "libhost.so")
-        res = subprocess.run([cc, "-O2", "-shared", "-fPIC", *srcs, "-o", out],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"{cc} failed to build {', '.join(srcs)} ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(out, path)
-    return path
-
-
-def native_library() -> Optional[ctypes.CDLL]:
-    """The C library as ``NATIVE`` asks for it, or None for the Python code."""
-    if NATIVE is False:
-        return None
-    if "lib" not in _lib_cache:
-        path = _build_library()
-        if not path:
-            if NATIVE:
-                raise RuntimeError(f"the native host library was asked for and no C compiler "
-                                   f"({', '.join(_COMPILERS)}) is installed")
-            return None
-        lib = ctypes.CDLL(path)
-        lib.rle_encode.restype = _I64
-        lib.rle_encode.argtypes = [_U8P, _I64, _I64, _U32P, _I64]
-        lib.rle_decode.restype = None
-        lib.rle_decode.argtypes = [_U32P, _I64, _U8P, _I64]
-        lib.rle_iou.restype = None
-        lib.rle_iou.argtypes = [_U32P, _I64P, _I64P, _I64, _U32P, _I64P, _I64P, _I64, _U8P, _F64P]
-        lib.rle_string_encode.restype = _I64
-        lib.rle_string_encode.argtypes = [_U32P, _I64, ctypes.c_char_p, _I64]
-        lib.rle_string_decode.restype = _I64
-        lib.rle_string_decode.argtypes = [ctypes.c_char_p, _I64, _U32P, _I64]
-        lib.contours_find.restype = _I64
-        lib.contours_find.argtypes = [ctypes.c_void_p, _I64, _I64, ctypes.c_int32,
-                                      ctypes.c_int32, ctypes.c_void_p, _I64]
-        _lib_cache["lib"] = lib
-    return _lib_cache["lib"]
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return a.ctypes.data_as(ctypes.c_void_p)
 
 
 def _np_counts_from_mask(mask: np.ndarray) -> np.ndarray:
@@ -165,15 +91,15 @@ def encode_plain(mask: np.ndarray) -> Dict:
 
 def encode(mask: np.ndarray) -> Dict:
     """Binary mask (H, W) → RLE dict with compressed bytes counts."""
-    lib = native_library()
+    lib = kernels.host()
     if lib is None:
         return encode_plain(mask)
     h, w = mask.shape
     flat = np.ascontiguousarray(np.asarray(mask).ravel(order="F"), np.uint8)
     counts = np.empty(h * w + 2, np.uint32)
-    m = lib.rle_encode(flat.ctypes.data_as(_U8P), h, w, counts.ctypes.data_as(_U32P), len(counts))
+    m = lib.rle_encode(_ptr(flat), h, w, _ptr(counts), len(counts))
     buf = ctypes.create_string_buffer(6 * m + 16)
-    n = lib.rle_string_encode(counts.ctypes.data_as(_U32P), m, buf, len(buf))
+    n = lib.rle_string_encode(_ptr(counts), m, buf, len(buf))
     return {"size": [h, w], "counts": buf.raw[:n]}
 
 
@@ -183,11 +109,11 @@ def _counts_of(rle: Dict) -> np.ndarray:
         return np.asarray(c, np.uint32)
     if isinstance(c, str):
         c = c.encode()
-    lib = native_library()
+    lib = kernels.host()
     if lib is None:
         return _np_string_decode(c)
     counts = np.empty(len(c) + 4, np.uint32)
-    m = lib.rle_string_decode(c, len(c), counts.ctypes.data_as(_U32P), len(counts))
+    m = lib.rle_string_decode(c, len(c), _ptr(counts), len(counts))
     if m < 0:
         raise ValueError("malformed RLE counts string")
     return counts[:m]
@@ -201,14 +127,13 @@ def decode_plain(rle: Dict) -> np.ndarray:
 
 
 def decode(rle: Dict) -> np.ndarray:
-    lib = native_library()
+    lib = kernels.host()
     if lib is None:
         return decode_plain(rle)
     h, w = rle["size"]
     counts = _counts_of(rle)
     mask = np.zeros(h * w, np.uint8)
-    lib.rle_decode(np.ascontiguousarray(counts).ctypes.data_as(_U32P), len(counts),
-                   mask.ctypes.data_as(_U8P), h * w)
+    lib.rle_decode(_ptr(np.ascontiguousarray(counts)), len(counts), _ptr(mask), h * w)
     return mask.reshape((h, w), order="F")
 
 
@@ -247,7 +172,7 @@ def iou(dt: Sequence[Dict], gt: Sequence[Dict], iscrowd: Sequence[int] | None = 
     """Pairwise IoU matrix (len(dt), len(gt)); iscrowd → IoF for that gt.
     The library sweeps each pair's runs; without it, ``iou_plain``."""
     nd, ng = len(dt), len(gt)
-    lib = native_library()
+    lib = kernels.host()
     if nd == 0 or ng == 0 or lib is None:
         return iou_plain(dt, gt, iscrowd)
     crowd = np.asarray(iscrowd if iscrowd is not None else [0] * ng, np.uint8)
@@ -255,10 +180,8 @@ def iou(dt: Sequence[Dict], gt: Sequence[Dict], iscrowd: Sequence[int] | None = 
     g_flat, g_off, g_len = (d_flat, d_off, d_len) if gt is dt else _flatten(
         [_counts_of(r) for r in gt])
     out = np.zeros(nd * ng, np.float64)
-    lib.rle_iou(d_flat.ctypes.data_as(_U32P), d_off.ctypes.data_as(_I64P),
-                d_len.ctypes.data_as(_I64P), nd, g_flat.ctypes.data_as(_U32P),
-                g_off.ctypes.data_as(_I64P), g_len.ctypes.data_as(_I64P), ng,
-                crowd.ctypes.data_as(_U8P), out.ctypes.data_as(_F64P))
+    lib.rle_iou(_ptr(d_flat), _ptr(d_off), _ptr(d_len), nd, _ptr(g_flat), _ptr(g_off),
+                _ptr(g_len), ng, _ptr(crowd), _ptr(out))
     return out.reshape(nd, ng)
 
 

@@ -93,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, int]:
                     "one); 'cpu' for the CPU")
     args = ap.parse_args(argv)
 
-    from nuhtc_tpu_torch.apis.inference import resolve_device
+    from nuhtc_tpu_torch.apis.inference import no_tf32, resolve_device
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.models.build import build_detector, init_random_weights
 
@@ -109,9 +109,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, int]:
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_options(dict(kv.split("=", 1) for kv in args.cfg_options))
-    # f32 products stay f32, as in init_detector: no TF32 in matmuls or cuDNN
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     model = build_detector(cfg.model, cfg.model.get("test_cfg"), swin_kernel="none")
     init_random_weights(model, torch.Generator().manual_seed(0))
     model = model.to(device=device, dtype=torch.float32).eval()

@@ -4,20 +4,20 @@
 
 Drives ``wsi.infer.infer_slide`` (WSI mode, PanNuke config, B16, bf16, random
 weights from a seed, ``mode="all"``) over the synthetic slide of
-``tools/synthetic.py``, once with the numpy RLE code and the Python contour
-tracer and once with the host C library (``ops.rle.NATIVE``), ``--repeats``
-times each in turn, and prints
-for every run the wall time, tiles/s, ``infer_slide``'s own attribution
-(read_wait / dispatch / collect with its device wait and download / post)
-and, from a ``utils.profiling.trace`` of the run, each span's host time,
-self time and device idle (``profiling.span_table``): ``wsi.read_wait``, the
-engine's ``engine.dispatch`` and ``engine.collect`` with their children,
-``wsi.post`` with ``wsi.filter``, ``wsi.rle``, ``wsi.mask_nms``,
-``wsi.contours`` and ``wsi.export`` (``exporter.close`` too), ``wsi.slide``'s
-self time; the detections entering post and the nuclei leaving it; the
-device idle in no span, and the device records that start before their
-launch (0 when the clocks agree). All runs are traced. The card's name and
-power limit are printed first.
+``tools/synthetic.py`` ``--repeats`` times, on the path the program takes
+(the host C library for RLE and contours wherever a C compiler is
+installed), and prints for every run the wall time, tiles/s,
+``infer_slide``'s own attribution (read_wait / dispatch / collect with its
+device wait and download / post) and, from a ``utils.profiling.trace`` of
+the run, each span's host time, self time and device idle
+(``profiling.span_table``): ``wsi.read_wait``, the engine's
+``engine.dispatch`` and ``engine.collect`` with their children, ``wsi.post``
+with ``wsi.filter``, ``wsi.rle``, ``wsi.mask_nms``, ``wsi.contours`` and
+``wsi.export`` (``exporter.close`` too), ``wsi.slide``'s self time; the
+detections entering post and the nuclei leaving it; the device idle in no
+span, and the device records that start before their launch (0 when the
+clocks agree). All runs are traced. The card's name and power limit are
+printed first.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ def main(argv=None) -> int:
 
     from nuhtc_tpu_torch.apis.inference import init_detector
     from nuhtc_tpu_torch.data.classes import dataset_classes
-    from nuhtc_tpu_torch.ops import rle
     from nuhtc_tpu_torch.tools.synthetic import lift_objectness, slide_and_grid
     from nuhtc_tpu_torch.utils import profiling
     from nuhtc_tpu_torch.wsi import infer
@@ -59,27 +58,21 @@ def main(argv=None) -> int:
                       for x, y in coords[:args.batch_size]])  # warm-up
     torch.cuda.synchronize()
 
-    try:
-        for rep in range(args.repeats):
-            for native in (False, True):
-                rle.NATIVE = native
-                with tempfile.TemporaryDirectory() as out_dir:
-                    with profiling.trace("slide", log_dir=out_dir):
-                        stats = infer.infer_slide(engine, slide, coords, out_dir, "slide",
-                                                  dataset_classes("PanNukeCocoDataset"),
-                                                  mode="all", progress=False)
-                    with open(os.path.join(out_dir, "slide.pt.trace.json")) as f:
-                        table = profiling.span_table(json.load(f)["traceEvents"], "slide")
-                spans = {k: {m: round(float(v), 4) for m, v in row.items()}
-                         for k, row in table["spans"].items()}
-                print(json.dumps(dict(run=rep, host="C library" if native else "Python",
-                                      **{k: round(float(v), 4) for k, v in stats.items()},
-                                      counters=dict(profiling.COUNTERS), spans=spans,
-                                      idle_s=round(table["idle_s"], 4),
-                                      uncovered_idle_s=round(table["uncovered_idle_s"], 4),
-                                      early_starts=table["early_starts"])), flush=True)
-    finally:
-        rle.NATIVE = None
+    for rep in range(args.repeats):
+        with tempfile.TemporaryDirectory() as out_dir:
+            with profiling.trace("slide", log_dir=out_dir):
+                stats = infer.infer_slide(engine, slide, coords, out_dir, "slide",
+                                          dataset_classes("PanNukeCocoDataset"),
+                                          mode="all", progress=False)
+            with open(os.path.join(out_dir, "slide.pt.trace.json")) as f:
+                table = profiling.span_table(json.load(f)["traceEvents"], "slide")
+        spans = {k: {m: round(float(v), 4) for m, v in row.items()}
+                 for k, row in table["spans"].items()}
+        print(json.dumps(dict(run=rep, **{k: round(float(v), 4) for k, v in stats.items()},
+                              counters=dict(profiling.COUNTERS), spans=spans,
+                              idle_s=round(table["idle_s"], 4),
+                              uncovered_idle_s=round(table["uncovered_idle_s"], 4),
+                              early_starts=table["early_starts"])), flush=True)
     return 0
 
 

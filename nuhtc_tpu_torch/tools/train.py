@@ -77,6 +77,7 @@ def main(argv: Optional[Sequence[str]] = None, trainer_kw: Optional[dict] = None
 def _train(args, device, rank: int, world: int, trainer_kw: Optional[dict]):
     import torch
 
+    from nuhtc_tpu_torch.apis.inference import no_tf32
     from nuhtc_tpu_torch.apis.train import set_random_seed, train_detector
     from nuhtc_tpu_torch.config import Config
     from nuhtc_tpu_torch.data.coco import build_dataset
@@ -84,9 +85,7 @@ def _train(args, device, rank: int, world: int, trainer_kw: Optional[dict]):
 
     if args.deterministic:
         set_random_seed(args.seed, deterministic=True)
-    # f32 products stay f32 on the card: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
 
     cfg = Config.fromfile(args.config)
     if args.cfg_options:

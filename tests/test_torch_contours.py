@@ -23,13 +23,12 @@ EXTERNAL = [(cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE), (cv2.RETR_EXTERNAL, cv
 
 
 @pytest.fixture
-def native(monkeypatch):
+def native():
     """``find_contours`` on the host C library: required, never the Python
     fallback."""
-    from nuhtc_tpu_torch.ops import rle
+    from nuhtc_tpu_torch import kernels
 
-    monkeypatch.setattr(rle, "NATIVE", True)
-    assert rle.native_library() is not None
+    assert kernels.host() is not None
 
 
 def _assert_same(got, got_h, want, want_h):

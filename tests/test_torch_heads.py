@@ -183,3 +183,27 @@ def test_batched_nms_keep_sets():
             np.testing.assert_array_equal(n(ti[i])[jv], np.asarray(ji)[jv])
             np.testing.assert_array_equal(n(tb[i]), np.asarray(jb))
             np.testing.assert_array_equal(n(ts[i]), np.asarray(js))
+
+
+@pytest.mark.parametrize("classes, score_thr, max_per_img, candidates", [
+    (5, 0.35, 500, 2048),  # NuHTC on PanNuke: every (roi, class) pair a candidate
+    (8, 0.05, 100, 1024),  # Mask R-CNN on NuCLS: the top 1,024 of 2,400 pairs
+], ids=["nuhtc", "maskrcnn"])
+def test_multiclass_nms_one_box_per_roi_equals_one_per_class(classes, score_thr, max_per_img,
+                                                             candidates):
+    """A roi's box (B, P, 4), gathered by roi, gives exactly what the same
+    box repeated for every class (B, P, C, 4), gathered by candidate, gives."""
+    rng = np.random.RandomState(7)
+    b, p = 2, 300
+    boxes = t(np.stack([_boxes(rng, p, 60.0, min_size=3.0) for _ in range(b)]))
+    scores = t(rng.dirichlet(np.full(classes + 1, 0.3), (b, p)).astype(np.float32))
+    valid = t(rng.rand(b, p) > 0.1)
+    args = (classes, score_thr, 0.5, max_per_img, candidates)
+    got = tnms.multiclass_nms(boxes, scores, valid, *args)
+    want = tnms.multiclass_nms(boxes[:, :, None].expand(b, p, classes, 4), scores, valid, *args)
+    assert set(got) == set(want) == {"boxes", "scores", "labels", "probs", "valid"}
+    for key in got:
+        assert got[key].shape == want[key].shape and got[key].dtype == want[key].dtype
+        assert torch.equal(got[key], want[key]), key
+    assert got["boxes"].shape == (b, max_per_img, 4) and (got["valid"].sum(1) > 10).all()
+    assert set(n(got["labels"][got["valid"]]).tolist()) == set(range(classes))

@@ -222,8 +222,9 @@ def _disc(cx, cy, r):
 def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
     """``csrc/rle.c`` through ``ops.rle`` against the numpy code, and
     ``csrc/contours.c`` through ``find_contours`` against the Python tracer:
-    exactly equal, each call counted by the path it took. ``NATIVE=False``
-    traces in Python. A build that was asked for and cannot be made raises."""
+    exactly equal, each call counted by the path it took. Without the
+    library (``kernels.host()`` None) both run in Python. A C compiler that
+    is installed and fails raises; where none is installed, Python."""
     import shutil
 
     from nuhtc_tpu_torch import kernels
@@ -239,8 +240,7 @@ def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
     masks = [_disc(rng.randint(0, 64), rng.randint(0, 64), rng.randint(1, 20)) for _ in range(30)]
     masks += [np.zeros((T, T), np.uint8), np.ones((T, T), np.uint8),
               (rng.rand(T, T) < 0.5).astype(np.uint8)]
-    monkeypatch.setattr(rle, "NATIVE", True)
-    assert rle.native_library() is not None
+    assert kernels.host() is not None
     got = [rle.encode(m) for m in masks]
     assert got == [rle.encode_plain(m) for m in masks]
     for r, m in zip(got, masks):
@@ -260,30 +260,24 @@ def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
         assert counters == {"contours.native": 1}
         assert len(found) == len(want) and all(np.array_equal(a, b) for a, b in zip(found, want))
         np.testing.assert_array_equal(tree, want_tree)
-    monkeypatch.setattr(rle, "NATIVE", False)
-    assert rle.native_library() is None and rle.encode(masks[0]) == got[0]
+    uncached = kernels.host.__wrapped__  # builds and loads anew at each call
+    monkeypatch.setattr(kernels, "host", lambda: None)
+    assert rle.encode(masks[0]) == got[0]
     np.testing.assert_array_equal(rle.iou(got[:5], got[:5]), rle.iou_plain(got[:5], got[:5]))
     (found, tree), counters = traced(masks[0])
     assert counters == {"contours.plain": 1}
     np.testing.assert_array_equal(found[0], contours.find_contours_plain(masks[0])[0][0])
 
-    # no library yet in an empty build directory: a failing or missing compiler raises
+    # no library yet in an empty build directory: a failing compiler raises
+    monkeypatch.setattr(kernels, "host", uncached)
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(rle, "_lib_cache", {})
-    monkeypatch.setattr(rle, "_COMPILERS", ("false",))
-    for mode in (None, True):
-        monkeypatch.setattr(rle, "NATIVE", mode)
-        with pytest.raises(RuntimeError, match="failed to build"):
-            rle.encode(masks[0])
-        with pytest.raises(RuntimeError, match="failed to build"):
-            contours.find_contours(masks[0])
-    monkeypatch.setattr(shutil, "which", lambda name: None)
-    with pytest.raises(RuntimeError, match="no C compiler"):
+    monkeypatch.setattr(kernels, "_COMPILERS", ("false",))
+    with pytest.raises(RuntimeError, match="failed to build"):
         rle.encode(masks[0])
-    with pytest.raises(RuntimeError, match="no C compiler"):
+    with pytest.raises(RuntimeError, match="failed to build"):
         contours.find_contours(masks[0])
-    monkeypatch.setattr(rle, "NATIVE", None)  # nothing installed to build with: Python
-    assert rle.encode(masks[0]) == got[0]
+    monkeypatch.setattr(shutil, "which", lambda name: None)  # nothing to build with: Python
+    assert kernels.host() is None and rle.encode(masks[0]) == got[0]
     (found, _), counters = traced(masks[0])
     assert counters == {"contours.plain": 1}
     np.testing.assert_array_equal(found[0], contours.find_contours_plain(masks[0])[0][0])
