@@ -3,11 +3,14 @@
  * compressed string form = delta-coded counts in 5-bit groups with a
  * continuation bit, offset by 48).
  *
- * A copy of nuhtc_tpu/native/rle.c: host code in plain C, no CUDA. It stands
- * where the reference depends on pycocotools' C maskApi; a fresh
- * implementation, with no code taken from pycocotools.
+ * The codec is a copy of nuhtc_tpu/native/rle.c: host code in plain C, no
+ * CUDA. It stands where the reference depends on pycocotools' C maskApi; a
+ * fresh implementation, with no code taken from pycocotools. Added for the
+ * slide's per-tile post-processing, on masks held whole: one pass for each
+ * mask's area and pixel box, the pixels two masks share over the overlap of
+ * their boxes, and a mask's RLE from its crop.
  *
- * Build (done at first use by nuhtc_tpu_torch/ops/rle.py, with contours.c):
+ * Build (done at first use by nuhtc_tpu_torch/kernels host(), with contours.c):
  *   cc -O2 -shared -fPIC rle.c contours.c -o libhost.so
  */
 
@@ -166,6 +169,115 @@ int64_t rle_string_decode(const char *s, int64_t slen, uint32_t *counts, int64_t
     if (m > 2) x += (int64_t)counts[m - 2];
     if (m >= cap) return -1;
     counts[m++] = (uint32_t)x;
+  }
+  return m;
+}
+
+/* ---- masks held whole: (n, h, w) uint8, row-major ---------------------- */
+/* the high bit of each non-zero byte of v (no carry crosses a byte) */
+static inline uint64_t nonzero_high_bits(uint64_t v) {
+  const uint64_t low7 = 0x7f7f7f7f7f7f7f7full;
+  return (((v & low7) + low7) | v) & ~low7;
+}
+
+/* One pass over n masks: each mask's area (its non-zero pixels) and its
+ * pixel box [y0, y1, x0, x1) (ends exclusive; all 0 for an empty mask). */
+void mask_extents(const uint8_t *masks, int64_t n, int64_t h, int64_t w,
+                  int64_t *area, int64_t *box) {
+  for (int64_t k = 0; k < n; k++) {
+    const uint8_t *m = masks + k * h * w;
+    int64_t a = 0, y0 = -1, y1 = 0, x0 = w, x1 = 0;
+    for (int64_t y = 0; y < h; y++) {
+      const uint8_t *row = m + y * w;
+      int64_t x = 0, first = -1, last = -1;
+      for (; x + 8 <= w; x += 8) {
+        uint64_t word;
+        memcpy(&word, row + x, 8);
+        if (!word) continue;
+        a += __builtin_popcountll(nonzero_high_bits(word));
+        for (int64_t j = 0; j < 8; j++) {
+          if (row[x + j]) {
+            if (first < 0) first = x + j;
+            last = x + j;
+          }
+        }
+      }
+      for (; x < w; x++) {
+        if (row[x]) {
+          a++;
+          if (first < 0) first = x;
+          last = x;
+        }
+      }
+      if (first < 0) continue;
+      if (y0 < 0) y0 = y;
+      y1 = y + 1;
+      if (first < x0) x0 = first;
+      if (last + 1 > x1) x1 = last + 1;
+    }
+    int64_t *b = box + 4 * k;
+    area[k] = a;
+    if (y0 < 0) {
+      b[0] = b[1] = b[2] = b[3] = 0;
+    } else {
+      b[0] = y0; b[1] = y1; b[2] = x0; b[3] = x1;
+    }
+  }
+}
+
+/* Pixels that masks first[i] and second[i] share, counted over the overlap
+ * of their boxes (as mask_extents gives them; a mask has no pixel outside
+ * its box), for each of the k pairs. */
+void mask_pair_inter(const uint8_t *masks, int64_t h, int64_t w, const int64_t *box,
+                     const int64_t *first, const int64_t *second, int64_t k,
+                     int64_t *inter) {
+  for (int64_t i = 0; i < k; i++) {
+    const int64_t *ba = box + 4 * first[i], *bb = box + 4 * second[i];
+    const uint8_t *ma = masks + first[i] * h * w, *mb = masks + second[i] * h * w;
+    int64_t y0 = ba[0] > bb[0] ? ba[0] : bb[0], y1 = ba[1] < bb[1] ? ba[1] : bb[1];
+    int64_t x0 = ba[2] > bb[2] ? ba[2] : bb[2], x1 = ba[3] < bb[3] ? ba[3] : bb[3];
+    int64_t c = 0;
+    for (int64_t y = y0; y < y1; y++)
+      for (int64_t x = x0; x < x1; x++) c += ma[y * w + x] && mb[y * w + x];
+    inter[i] = c;
+  }
+}
+
+/* The counts rle_encode gives for an h x w mask that is zero outside a
+ * ch x cw crop at rows y0.., columns x0.. of it; the crop is row-major with
+ * rows `stride` bytes apart. Returns the number of counts, or -1 if cap
+ * (2 * ch * cw + 1 is always enough) is exceeded. */
+int64_t rle_encode_crop(const uint8_t *crop, int64_t stride, int64_t ch, int64_t cw,
+                        int64_t y0, int64_t x0, int64_t h, int64_t w,
+                        uint32_t *counts_out, int64_t cap) {
+  int64_t m = 0, done = 0, start = -1, end = -1; /* done: end of the last run written */
+  for (int64_t x = 0; x < cw; x++) {
+    for (int64_t y = 0; y < ch; y++) {
+      if (!crop[y * stride + x]) continue;
+      int64_t p = (x0 + x) * h + y0 + y; /* the pixel's column-major index */
+      if (p == end) {
+        end++;
+        continue;
+      }
+      if (start >= 0) {
+        if (m + 2 > cap) return -1;
+        counts_out[m++] = (uint32_t)(start - done);
+        counts_out[m++] = (uint32_t)(end - start);
+        done = end;
+      }
+      start = p;
+      end = p + 1;
+    }
+  }
+  if (start >= 0) {
+    if (m + 2 > cap) return -1;
+    counts_out[m++] = (uint32_t)(start - done);
+    counts_out[m++] = (uint32_t)(end - start);
+    done = end;
+  }
+  if (done < h * w || m == 0) {
+    if (m >= cap) return -1;
+    counts_out[m++] = (uint32_t)(h * w - done);
   }
   return m;
 }

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -24,22 +24,34 @@ from nuhtc_tpu_torch.utils.imageio import write_png
 from nuhtc_tpu_torch.utils.visualize import draw_detections
 
 
+def greedy_nms(scores: np.ndarray, iou_of: Callable[[np.ndarray], np.ndarray],
+               thr: float) -> np.ndarray:
+    """Greedy suppression, score-descending: ``iou_of(order)`` gives the
+    (n, n) IoU of the detections taken in ``order``, and a detection goes
+    when its IoU with a kept one of higher score is above ``thr``. Returns
+    the kept original indices, in score order."""
+    order = np.argsort(scores)[::-1]
+    sup = iou_of(order) > thr
+    keep = np.ones(len(order), bool)
+    for i in np.flatnonzero(sup.any(1)):  # a row with nothing above thr suppresses nothing
+        if keep[i]:
+            keep[i + 1:] &= ~sup[i, i + 1:]
+    return order[keep]
+
+
 def mask_nms(rles: List[dict], scores: np.ndarray, thr: float = 0.05):
     """Greedy RLE-IoU suppression, score-descending. Returns (kept rles,
     kept original indices)."""
     n = len(rles)
     if n == 0:
         return [], np.zeros(0, np.int64)
-    order = np.argsort(scores)[::-1]
-    sorted_rles = [rles[i] for i in order]
-    iou = rle_ops.iou(sorted_rles, sorted_rles, [0] * n)
-    keep = np.ones(n, bool)
-    for i in range(n):
-        if not keep[i]:
-            continue
-        sup = iou[i, i + 1:] > thr
-        keep[i + 1:] &= ~sup
-    return [sorted_rles[i] for i in np.nonzero(keep)[0]], order[keep]
+
+    def iou_of(order):
+        ordered = [rles[i] for i in order]
+        return rle_ops.iou(ordered, ordered, [0] * n)
+
+    kept = greedy_nms(scores, iou_of, thr)
+    return [rles[i] for i in kept], kept
 
 
 def convert_format(

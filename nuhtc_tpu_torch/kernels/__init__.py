@@ -53,6 +53,9 @@ _HOST_SIGNATURES = {
     "rle_string_encode": (_L, [_P, _L, ctypes.c_char_p, _L]),
     "rle_string_decode": (_L, [ctypes.c_char_p, _L, _P, _L]),
     "contours_find": (_L, [_P, _L, _L, ctypes.c_int32, ctypes.c_int32, _P, _L]),
+    "mask_extents": (None, [_P, _L, _L, _L, _P, _P]),
+    "mask_pair_inter": (None, [_P, _L, _L, _P, _P, _P, _L, _P]),
+    "rle_encode_crop": (_L, [_P] + [_L] * 7 + [_P, _L]),
 }
 
 

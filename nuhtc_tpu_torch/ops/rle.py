@@ -8,6 +8,12 @@ port's host C library (``csrc/rle.c``, built and loaded by
 a C compiler is installed, the numpy code where none is.
 
 RLE dict format matches pycocotools: {"size": [h, w], "counts": bytes}.
+
+For (n, h, w) masks held whole, as the slide's post-processing gets them:
+``extents`` (each mask's area and pixel box, in one pass), ``intersections``
+(the pixels two masks share, counted over the overlap of their boxes) and
+``encode_crop`` (``encode``'s bytes from a mask's crop and its offset), each
+with its numpy version (``*_plain``) beside it.
 """
 
 from __future__ import annotations
@@ -20,8 +26,8 @@ import numpy as np
 from nuhtc_tpu_torch import kernels
 
 
-def _ptr(a: np.ndarray) -> ctypes.c_void_p:
-    return a.ctypes.data_as(ctypes.c_void_p)
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
 
 
 def _np_counts_from_mask(mask: np.ndarray) -> np.ndarray:
@@ -89,6 +95,12 @@ def encode_plain(mask: np.ndarray) -> Dict:
     return {"size": [h, w], "counts": _np_string_encode(_np_counts_from_mask(mask))}
 
 
+def _string_encode(lib, counts: np.ndarray, m: int) -> bytes:
+    buf = ctypes.create_string_buffer(6 * m + 16)
+    n = lib.rle_string_encode(_ptr(counts), m, buf, len(buf))
+    return buf.raw[:n]
+
+
 def encode(mask: np.ndarray) -> Dict:
     """Binary mask (H, W) → RLE dict with compressed bytes counts."""
     lib = kernels.host()
@@ -98,9 +110,129 @@ def encode(mask: np.ndarray) -> Dict:
     flat = np.ascontiguousarray(np.asarray(mask).ravel(order="F"), np.uint8)
     counts = np.empty(h * w + 2, np.uint32)
     m = lib.rle_encode(_ptr(flat), h, w, _ptr(counts), len(counts))
-    buf = ctypes.create_string_buffer(6 * m + 16)
-    n = lib.rle_string_encode(_ptr(counts), m, buf, len(buf))
-    return {"size": [h, w], "counts": buf.raw[:n]}
+    return {"size": [h, w], "counts": _string_encode(lib, counts, m)}
+
+
+def _u8(a: np.ndarray) -> np.ndarray:
+    """``a`` as uint8 (any non-zero value 1 where it was not uint8 or bool)
+    with its rows contiguous, copied only where it has to be."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        a = a.view(np.uint8)
+    elif a.dtype != np.uint8:
+        a = (a != 0).view(np.uint8)
+    if a.strides[-1] != 1 or min(a.strides) < 0:
+        a = np.ascontiguousarray(a)
+    return a
+
+
+def _counts_from_crop(crop: np.ndarray, y0: int, x0: int, h: int, w: int) -> np.ndarray:
+    xs, ys = np.nonzero(np.asarray(crop).T)  # column-major order
+    p = (x0 + xs.astype(np.int64)) * h + (y0 + ys)  # ascending
+    if len(p) == 0:
+        return np.asarray([h * w], np.uint32)
+    breaks = np.flatnonzero(np.diff(p) != 1)
+    starts = p[np.concatenate([[0], breaks + 1])]
+    ends = p[np.concatenate([breaks, [len(p) - 1]])] + 1
+    counts = np.stack([starts - np.concatenate([[0], ends[:-1]]), ends - starts], 1).ravel()
+    if ends[-1] < h * w:
+        counts = np.append(counts, h * w - ends[-1])
+    return counts.astype(np.uint32)
+
+
+def _crop_checked(crop, y0: int, x0: int, size: Sequence[int]) -> np.ndarray:
+    crop = np.asarray(crop)
+    h, w = size
+    ch, cw = crop.shape
+    if y0 < 0 or x0 < 0 or y0 + ch > h or x0 + cw > w:
+        raise ValueError(f"a {ch}x{cw} crop at ({y0}, {x0}) is not inside {h}x{w}")
+    return crop
+
+
+def encode_crop_plain(crop: np.ndarray, y0: int, x0: int, size: Sequence[int]) -> Dict:
+    crop = _crop_checked(crop, y0, x0, size)
+    h, w = size
+    return {"size": [h, w], "counts": _np_string_encode(_counts_from_crop(crop, y0, x0, h, w))}
+
+
+def encode_crop(crop: np.ndarray, y0: int, x0: int, size: Sequence[int]) -> Dict:
+    """``encode`` of the ``size`` = (h, w) mask that is ``crop`` at row
+    ``y0``, column ``x0`` and zero elsewhere, byte for byte, read from the
+    crop alone."""
+    lib = kernels.host()
+    if lib is None:
+        return encode_crop_plain(crop, y0, x0, size)
+    crop = _u8(_crop_checked(crop, y0, x0, size))
+    h, w = size
+    ch, cw = crop.shape
+    counts = np.empty(2 * ch * cw + 2, np.uint32)
+    m = lib.rle_encode_crop(_ptr(crop), crop.strides[0], ch, cw, y0, x0, h, w, _ptr(counts),
+                            len(counts))
+    return {"size": [h, w], "counts": _string_encode(lib, counts, m)}
+
+
+def extents_plain(masks: np.ndarray):
+    fg = np.asarray(masks) != 0
+    n, h, w = fg.shape
+    area = fg.sum((1, 2), dtype=np.int64)
+    rows, cols = fg.any(2), fg.any(1)
+    box = np.stack([rows.argmax(1), h - rows[:, ::-1].argmax(1),
+                    cols.argmax(1), w - cols[:, ::-1].argmax(1)], 1).astype(np.int64)
+    box[area == 0] = 0
+    return area, box
+
+
+def extents(masks: np.ndarray):
+    """(n, h, w) masks → (area (n,), box (n, 4)), int64: each mask's
+    non-zero pixels (its sum, on 0/1 masks) and the rows and columns they
+    span, [y0, y1, x0, x1) with the ends exclusive (all 0 for an empty
+    mask). The library reads the masks once."""
+    lib = kernels.host()
+    if lib is None:
+        return extents_plain(masks)
+    masks = np.ascontiguousarray(_u8(masks))
+    n, h, w = masks.shape
+    area = np.empty(n, np.int64)
+    box = np.empty((n, 4), np.int64)
+    lib.mask_extents(_ptr(masks), n, h, w, _ptr(area), _ptr(box))
+    return area, box
+
+
+def intersections_plain(masks: np.ndarray, box: np.ndarray, first: np.ndarray,
+                        second: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(first), np.int64)
+    for k, (i, j) in enumerate(zip(np.asarray(first).tolist(), np.asarray(second).tolist())):
+        y0, x0 = max(box[i, 0], box[j, 0]), max(box[i, 2], box[j, 2])
+        y1, x1 = min(box[i, 1], box[j, 1]), min(box[i, 3], box[j, 3])
+        if y0 < y1 and x0 < x1:
+            out[k] = np.count_nonzero((masks[i, y0:y1, x0:x1] != 0)
+                                      & (masks[j, y0:y1, x0:x1] != 0))
+    return out
+
+
+def intersections(masks: np.ndarray, box: np.ndarray, first: np.ndarray,
+                  second: np.ndarray) -> np.ndarray:
+    """The pixels masks ``first[k]`` and ``second[k]`` of (n, h, w)
+    ``masks`` share, int64, counted over the overlap of their boxes ``box``
+    (as ``extents`` gives them: no mask has a pixel outside its box)."""
+    lib = kernels.host()
+    if lib is None:
+        return intersections_plain(masks, box, first, second)
+    masks = np.ascontiguousarray(_u8(masks))
+    n, h, w = masks.shape
+    box = np.ascontiguousarray(box, np.int64)
+    first = np.ascontiguousarray(first, np.int64)
+    second = np.ascontiguousarray(second, np.int64)
+    pairs = np.concatenate([first, second])
+    if (box.shape != (n, 4) or len(first) != len(second)
+            or (n and (box.min() < 0 or box[:, 1].max() > h or box[:, 3].max() > w))
+            or (len(pairs) and (pairs.min() < 0 or pairs.max() >= n))):
+        raise ValueError("intersections: a box inside the frame for each mask, and pairs of "
+                         "mask indices")
+    out = np.empty(len(first), np.int64)
+    lib.mask_pair_inter(_ptr(masks), h, w, _ptr(box), _ptr(first), _ptr(second), len(first),
+                        _ptr(out))
+    return out
 
 
 def _counts_of(rle: Dict) -> np.ndarray:

@@ -5,8 +5,8 @@ Re-designs the reference Stage B loop (tools/infer_wsi.py:440-692): tile
 reads run in host prefetch threads (double-buffered against device compute —
 the reference serializes read → forward → CPU post per batch, SURVEY.md
 §3.3); the detector + mask pasting run on the device; margin filtering,
-min-area, mask-NMS (greedy RLE IoU > 0.05) and contour extraction run on
-host per tile.
+min-area, mask-NMS (greedy mask IoU > 0.05) and contour extraction run on
+host per tile, each detection on its own crop.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from nuhtc_tpu_torch.data.classes import DEFAULT_PALETTE
-from nuhtc_tpu_torch.eval.evaluate import mask_nms
+from nuhtc_tpu_torch.eval.evaluate import greedy_nms
 from nuhtc_tpu_torch.ops import rle as rle_ops
 from nuhtc_tpu_torch.ops.contours import draw_contours, find_contours
 from nuhtc_tpu_torch.utils.imageio import write_jpg
@@ -100,6 +100,19 @@ class TilePostprocessConfig:
     score_thr: float = 0.0
 
 
+def _meeting_pairs(box: np.ndarray):
+    """(first, second), first < second: the pairs whose pixel boxes
+    [y0, y1, x0, x1) share a pixel."""
+    y0, y1, x0, x1 = np.ascontiguousarray(box.T)
+    meet = y0[:, None] < y1
+    meet &= y0 < y1[:, None]
+    meet &= x0[:, None] < x1
+    meet &= x0 < x1[:, None]
+    first, second = np.nonzero(meet)
+    upper = first < second
+    return first[upper], second[upper]
+
+
 def postprocess_tile(
     result: Dict[str, np.ndarray],  # engine.run_batch per-image dict
     coord: Tuple[int, int],
@@ -107,6 +120,13 @@ def postprocess_tile(
     cfg: TilePostprocessConfig,
 ):
     """Margin/area filter + mask NMS + contours, mapped to slide frame.
+
+    One pass over the full-frame masks gives each detection's area and
+    pixel box; every later stage reads the detection's crop alone. The mask
+    NMS counts the pixels two masks share only where their boxes meet (an
+    IoU is 0 elsewhere), contours are traced on the box, and the RLE of each
+    detection returned is written from its box. Results equal the
+    full-frame computation's.
 
     Returns (contours [K×(1,P,2)], labels, scores, boxes_slide, rles_tile)."""
     boxes = result["boxes"]
@@ -118,8 +138,8 @@ def postprocess_tile(
     if len(boxes) == 0:
         return [], labels, scores, boxes, []
     with span("wsi.filter"):
-        areas = masks.reshape(len(masks), -1).sum(axis=1)
-        sel = (
+        areas, pix = rle_ops.extents(masks)
+        idx = np.flatnonzero(
             (boxes[:, 0] >= m)
             & (boxes[:, 1] >= m)
             & (boxes[:, 2] <= tile_size - m)
@@ -127,38 +147,51 @@ def postprocess_tile(
             & (areas >= cfg.min_area)
             & (scores >= cfg.score_thr)
         )
-        boxes, masks, labels, scores = boxes[sel], masks[sel], labels[sel], scores[sel]
-    if len(boxes) == 0:
+        boxes, labels, scores = boxes[idx], labels[idx], scores[idx]
+    n = len(idx)
+    if n == 0:
         return [], labels, scores, boxes, []
 
-    with span("wsi.rle"):
-        rles = [rle_ops.encode(mm) for mm in masks]
     with span("wsi.mask_nms"):
-        kept_rles, keep_idx = mask_nms(rles, scores, thr=cfg.nms_thr)
-        boxes, masks = boxes[keep_idx], masks[keep_idx]
-        labels, scores = labels[keep_idx], scores[keep_idx]
+        first, second = _meeting_pairs(pix[idx])
+        count("wsi.nms_pairs", len(first))
+        count("wsi.nms_pairs_all", n * (n - 1) // 2)
+        inter = rle_ops.intersections(masks, pix, idx[first], idx[second])
+        a = areas[idx]
+        met = inter / (a[first] + a[second] - inter)  # as rle_ops.iou: in double
+
+        def iou_of(order):
+            rank = np.empty(n, np.int64)
+            rank[order] = np.arange(n)
+            iou = np.zeros((n, n))
+            iou[rank[first], rank[second]] = iou[rank[second], rank[first]] = met
+            return iou
+
+        keep = greedy_nms(scores, iou_of, cfg.nms_thr)
+        idx, boxes, labels, scores = idx[keep], boxes[keep], labels[keep], scores[keep]
 
     contours, final = [], []
+    origin = np.asarray(coord)
     with span("wsi.contours"):
-        for i, mm in enumerate(masks):
-            found, _ = find_contours(mm)  # RETR_TREE, CHAIN_APPROX_SIMPLE
+        for i, (k, (y0, y1, x0, x1)) in enumerate(zip(idx.tolist(), pix[idx].tolist())):
+            # every pixel outside the box is zero, and find_contours pads with
+            # zeros as OpenCV does: the same borders, in the same raster
+            # order, as on the whole mask
+            found, _ = find_contours(masks[k, y0:y1, x0:x1])  # RETR_TREE, SIMPLE
             if not found:
                 continue
             cont = found[0].reshape(-1, 2)
             if len(cont) < 3:
                 continue
-            contours.append(cont + np.asarray(coord))
+            contours.append(cont + np.array([x0, y0], np.int32) + origin)
             final.append(i)
     count("wsi.nuclei", len(contours))
     final = np.asarray(final, np.int64)
+    with span("wsi.rle"):
+        rles = [rle_ops.encode_crop(masks[k, y0:y1, x0:x1], y0, x0, masks.shape[1:])
+                for k, (y0, y1, x0, x1) in zip(idx[final].tolist(), pix[idx[final]].tolist())]
     boxes_slide = boxes[final] + np.tile(np.asarray(coord, np.float32), 2)
-    return (
-        contours,
-        labels[final],
-        scores[final],
-        boxes_slide,
-        [kept_rles[i] for i in final],
-    )
+    return contours, labels[final], scores[final], boxes_slide, rles
 
 
 def infer_slide(

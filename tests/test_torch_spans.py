@@ -14,6 +14,8 @@ that detections exist) and a tiny ``ArraySlide``:
   post and the nuclei returned, every mask kept traced in the host library;
 - ``contours.native`` and ``contours.plain``: the masks traced by each
   path, read by ``slide.contours_native_share``;
+- ``wsi.nms_pairs`` and ``wsi.nms_pairs_all``: the pairs whose boxes met
+  in the mask NMS and all pairs, read by ``slide.nms_pair_share``;
 - ``nms.rounds`` on a suppression chain of k boxes: k rounds (k - 1 that
   change the keep set, one that finds it fixed);
 - ``span_table`` on synthetic traces: self time under nested spans, device
@@ -191,6 +193,8 @@ def test_slide_spans_counts_and_timers(engines, tmp_path, monkeypatch):
     assert sec["wsi.slide"] >= stats["seconds"]
     assert profiling.COUNTERS["wsi.detections"] == sum(entering) > 0
     assert profiling.COUNTERS["wsi.nuclei"] == stats["nuclei"]
+    # pairs of a tile's filtered detections, and those whose boxes met
+    assert 0 <= profiling.COUNTERS["wsi.nms_pairs"] <= profiling.COUNTERS["wsi.nms_pairs_all"]
     # every mask NMS kept was traced once, in the host library
     assert profiling.COUNTERS["contours.native"] >= stats["nuclei"]
     assert "contours.plain" not in profiling.COUNTERS
@@ -228,6 +232,22 @@ def test_contours_native_share_reads_the_counters(native, plain, want, monkeypat
     if native is None:
         monkeypatch.delattr(profiling, "COUNTERS")
     assert read({"trace": {"tiles": 64}}) == want
+
+
+@pytest.mark.parametrize("met,pairs,want", [(1, 3, 100 / 3), (0, 120, 0.0), (7, 7, 100.0),
+                                             (0, 0, None), (None, None, None)])
+def test_nms_pair_share_reads_the_counters(met, pairs, want, monkeypatch):
+    """``slide.nms_pair_share``: 100 · ``wsi.nms_pairs`` over
+    ``wsi.nms_pairs_all``; None where no tile had two detections, and None
+    from a program without the counters."""
+    from portbench.harness.common import metric_reader
+
+    read = metric_reader("slide.nms_pair_share")
+    counters = {} if met is None else {"wsi.nms_pairs": met, "wsi.nms_pairs_all": pairs}
+    monkeypatch.setattr(profiling, "SECONDS", {"engine.dispatch": 1.0})
+    monkeypatch.setattr(profiling, "COUNTERS", counters)
+    got = read({"trace": {"tiles": 64}})
+    assert got == (want if want is None else pytest.approx(want))
 
 
 def _chain(k: int):

@@ -283,6 +283,176 @@ def test_native_rle_equals_its_plain_version(tmp_path, monkeypatch):
     np.testing.assert_array_equal(found[0], contours.find_contours_plain(masks[0])[0][0])
 
 
+@pytest.mark.parametrize("shape", [(T, T), (37, 53), (8, 8), (1, 9)])
+def test_mask_extents_and_crop_rle_equal_the_full_frame(shape):
+    """The host library's passes over masks held whole, against numpy on
+    the full frame and against their numpy versions: ``extents`` gives
+    numpy's sum and the ``np.nonzero`` extents; ``encode_crop`` of a mask's
+    box, of a larger crop and of the whole frame gives ``encode``'s bytes,
+    empty masks and crops at every edge and corner included;
+    ``intersections`` gives the pixels two masks share."""
+    from nuhtc_tpu_torch import kernels
+    from nuhtc_tpu_torch.ops import rle
+
+    assert kernels.host() is not None
+    h, w = shape
+    rng = np.random.RandomState(h * w)
+    masks = [(rng.rand(h, w) < p).astype(np.uint8) for p in (0.05, 0.5, 0.95)]
+    masks += [np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8)]
+    for y0, y1, x0, x1 in [(0, 1, 0, 1), (0, h, 0, 1), (0, 1, 0, w), (h - 1, h, w - 1, w),
+                           (0, h, w - 1, w), (h - 1, h, 0, w), (0, 1, w - 1, w),
+                           (h - 1, h, 0, 1), (h // 3, h // 2 + 1, w // 4, w // 2 + 1)]:
+        m = np.zeros((h, w), np.uint8)
+        m[y0:y1, x0:x1] = rng.rand(y1 - y0, x1 - x0) < 0.6
+        m[y0, x0] = m[y1 - 1, x1 - 1] = 1
+        masks.append(m)
+    masks = np.stack(masks)
+    n = len(masks)
+
+    area, box = rle.extents(masks)
+    want_box = np.zeros((n, 4), np.int64)
+    for k, m in enumerate(masks):
+        ys, xs = np.nonzero(m)
+        if len(ys):
+            want_box[k] = ys.min(), ys.max() + 1, xs.min(), xs.max() + 1
+    np.testing.assert_array_equal(area, masks.reshape(n, -1).sum(1))
+    np.testing.assert_array_equal(box, want_box)
+    for got in (rle.extents_plain(masks), rle.extents(masks.astype(bool)),
+                rle.extents(masks * 7)):
+        np.testing.assert_array_equal(got[0], area)
+        np.testing.assert_array_equal(got[1], box)
+
+    for m, (y0, y1, x0, x1) in zip(masks, box.tolist()):
+        want = rle.encode(m)
+        assert want == rle.encode_plain(m)
+        py0, px0 = max(y0 - 1, 0), max(x0 - 1, 0)
+        for cy, cx, crop in ((y0, x0, m[y0:y1, x0:x1]), (py0, px0, m[py0:y1 + 1, px0:x1 + 1]),
+                             (0, 0, m)):
+            assert rle.encode_crop(crop, cy, cx, (h, w)) == want
+            assert rle.encode_crop_plain(crop, cy, cx, (h, w)) == want
+        assert rle.encode_crop(m[y0:y1, x0:x1].astype(bool), y0, x0, (h, w)) == want
+    with pytest.raises(ValueError, match="not inside"):
+        rle.encode_crop(masks[0], 1, 0, (h, w))
+
+    first, second = np.triu_indices(n, 1)
+    want = np.asarray([np.count_nonzero(masks[i] & masks[j]) for i, j in zip(first, second)])
+    np.testing.assert_array_equal(rle.intersections(masks, box, first, second), want)
+    np.testing.assert_array_equal(rle.intersections_plain(masks, box, first, second), want)
+    with pytest.raises(ValueError, match="inside the frame"):
+        rle.intersections(masks, box, first, second + 1)
+
+
+def _ellipses(rng, n, lo=2.0, hi=9.0):
+    """n filled T² ellipses of random centre (some past the tile's edge),
+    axes and angle."""
+    yy, xx = np.mgrid[:T, :T]
+    out = []
+    for _ in range(n):
+        cy, cx = rng.uniform(-3, T + 3, 2)
+        a, b = rng.uniform(lo, hi, 2)
+        t = rng.uniform(0, np.pi)
+        u = (yy - cy) * np.cos(t) + (xx - cx) * np.sin(t)
+        v = (xx - cx) * np.cos(t) - (yy - cy) * np.sin(t)
+        out.append((u / a) ** 2 + (v / b) ** 2 <= 1)
+    return np.stack(out).astype(np.uint8)
+
+
+def _from_label_map(masks):
+    """The masks a label map gives: disjoint, the lowest index winning where
+    they overlap (so some are cut in two, some emptied)."""
+    taken = np.zeros((T, T), bool)
+    out = np.zeros_like(masks)
+    for k, m in enumerate(masks):
+        out[k] = m.astype(bool) & ~taken
+        taken |= m.astype(bool)
+    return out
+
+
+def _edge_masks():
+    """Masks along each edge of the tile and in each corner, one-pixel
+    masks (two in corners), a ring, two components, an empty mask and the
+    whole tile."""
+    masks = []
+    for sl in (np.s_[0:3, 10:30], np.s_[20:40, 0:4], np.s_[T - 2:T, 30:50], np.s_[35:55, T - 5:],
+               np.s_[0:5, 0:6], np.s_[0:4, T - 4:], np.s_[T - 6:, 0:3], np.s_[T - 3:, T - 7:],
+               np.s_[30:31, 30:31], np.s_[0:1, 0:1], np.s_[T - 1:, T - 1:]):
+        m = np.zeros((T, T), np.uint8)
+        m[sl] = 1
+        masks.append(m)
+    ring = _disc(32, 20, 9)
+    ring[_disc(32, 20, 4) > 0] = 0
+    masks += [ring, _disc(12, 45, 4) | _disc(24, 52, 3), np.zeros((T, T), np.uint8),
+              np.ones((T, T), np.uint8)]
+    return np.stack(masks)
+
+
+def _post_case(case):
+    """(an engine's result for one tile, the post-processing settings)."""
+    rng = np.random.RandomState(["label_map", "overlap", "edges", "margin"].index(case))
+    kw = dict(margin=0, min_area=10, score_thr=0.0)
+    if case == "label_map":
+        masks = _from_label_map(_ellipses(rng, 60))
+    elif case == "overlap":  # overlapping masks, five of them twice: the NMS suppresses
+        masks = _ellipses(rng, 30, 3.0, 12.0)
+        masks[:, 0:22, 48:62] = masks[:, 28:57, 38:54] = 0  # room for two pairs alone
+        near = np.zeros((4, T, T), np.uint8)
+        near[0, 2:12, 50:60] = near[1, 11:21, 50:60] = 1  # IoU 10 / 190: one goes
+        near[2, 30:45, 40:47] = near[3, 40:55, 45:52] = 1  # IoU 10 / 200 = thr: both stay
+        masks = np.concatenate([masks, masks[:5], np.roll(masks[5:8], 1, axis=2), near])
+    elif case == "edges":
+        masks = _edge_masks()
+        kw["min_area"] = 0
+    else:
+        masks = _from_label_map(_ellipses(rng, 60))
+        kw.update(margin=6, min_area=20, score_thr=0.2)
+    boxes = np.zeros((len(masks), 4), np.float32)
+    for k, m in enumerate(masks):
+        ys, xs = np.nonzero(m)
+        if len(ys):
+            boxes[k] = xs.min(), ys.min(), xs.max() + 1, ys.max() + 1
+    boxes += rng.uniform(0, 0.3, boxes.shape).astype(np.float32)
+    res = dict(boxes=boxes, scores=rng.uniform(0.1, 1, len(masks)).astype(np.float32),
+               labels=rng.randint(0, 5, len(masks)).astype(np.int64), masks=masks)
+    return res, kw
+
+
+@pytest.mark.parametrize("host", ["library", "numpy"])
+@pytest.mark.parametrize("case", ["label_map", "overlap", "edges", "margin"])
+def test_postprocess_tile_equals_jax(case, host, monkeypatch):
+    """``postprocess_tile`` works on each detection's crop; the JAX
+    package's works on the full frame (its RLE, its mask NMS over every
+    pair, OpenCV's ``findContours``). Contours, labels, scores, slide boxes
+    and RLE bytes are exactly equal: on disjoint label-map masks, on
+    overlapping masks the NMS suppresses, on masks at each edge and corner
+    of the tile (one pixel, a hole, two components, empty), with a margin,
+    ``min_area`` and ``score_thr``; with the host library, and with its numpy
+    versions and the Python contour tracer (``kernels.host`` None)."""
+    from nuhtc_tpu_torch import kernels
+    from nuhtc_tpu_torch.utils import profiling
+
+    if host == "numpy":
+        monkeypatch.setattr(kernels, "host", lambda: None)
+    res, kw = _post_case(case)
+    coord = (448, 192)
+    with profiling.spans():
+        got = infer.postprocess_tile(res, coord, T, infer.TilePostprocessConfig(**kw))
+        counters = dict(profiling.COUNTERS)
+    want = j_infer.postprocess_tile(res, coord, T, j_infer.TilePostprocessConfig(**kw))
+    assert len(got[0]) == len(want[0]) >= 3
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got[1:4], want[1:4]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == want[4]
+    met, pairs = counters["wsi.nms_pairs"], counters["wsi.nms_pairs_all"]
+    assert 0 < met < pairs
+    if case == "overlap":
+        assert met >= 8  # the copies meet their originals
+    assert counters["contours." + ("plain" if host == "numpy" else "native")] >= len(got[0])
+
+
 # --------------------------------------------------------------------------- #
 # stage B on replayed results
 
