@@ -28,8 +28,8 @@
 // softmax runs beside the other's products. The softmax runs online in f32
 // in the base-2 domain (log2(e) folded into the scale and the bias; a
 // running max and sum a row, 2^x on the MUFU), the scores and the bias stay
-// in f32, P enters P.V in bf16, and the output is rescaled once by its row
-// sum at the end. It leaves through the warpgroup's q tiles as 16-byte
+// in f32, P enters P.V in bf16, the row sum adds those bf16 weights, and
+// the output is rescaled once by its row sum at the end. It leaves through the warpgroup's q tiles as 16-byte
 // stores.
 //
 // The bias. bias_h[q, ky] = q . rel_h[y_q - ky + H - 1] and bias_w[q, kx] =
@@ -117,6 +117,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// The two bf16 halves of a packed pair, as f32 (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -390,21 +393,20 @@ __global__ void __launch_bounds__(NT, 2) vit_attention_kernel(
       o0[4 * j] *= a0; o0[4 * j + 1] *= a0; o0[4 * j + 2] *= a1; o0[4 * j + 3] *= a1;
       o1[4 * j] *= a0; o1[4 * j + 1] *= a0; o1[4 * j + 2] *= a1; o1[4 * j + 3] *= a1;
     }
-    float ls[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the new weights' sums, two a row
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float p0 = exp2_ftz(s[4 * j + e] - sub0), p1 = exp2_ftz(s[4 * j + 2 + e] - sub1);
-        s[4 * j + e] = p0;
-        s[4 * j + 2 + e] = p1;
-        ls[e] += p0;
-        ls[2 + e] += p1;
+        s[4 * j + e] = exp2_ftz(s[4 * j + e] - sub0);
+        s[4 * j + 2 + e] = exp2_ftz(s[4 * j + 2 + e] - sub1);
       }
-    l0 += ls[0] + ls[1];
-    l1 += ls[2] + ls[3];
-    // P in bf16 as the A operand of four 16-key steps
+    // P in bf16 as the A operand of four 16-key steps, and the row sums of
+    // those bf16 weights: the sum that divides O is the sum of the weights
+    // that P.V multiplies, so many keys of equal weight (a padded window's
+    // tokens, all equal to the qkv bias) round together in both, and a row
+    // of equal values comes out exact
     uint32_t pa[4][4];
+    float ls[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the new weights' sums, two a row
 #pragma unroll
     for (int st = 0; st < 4; ++st) {
       const int ja = 2 * st, jb = 2 * st + 1;
@@ -412,7 +414,11 @@ __global__ void __launch_bounds__(NT, 2) vit_attention_kernel(
       pa[st][1] = pack_bf16(s[4 * ja + 2], s[4 * ja + 3]);
       pa[st][2] = pack_bf16(s[4 * jb], s[4 * jb + 1]);
       pa[st][3] = pack_bf16(s[4 * jb + 2], s[4 * jb + 3]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ls[r] += bf16_lo(pa[st][r]) + bf16_hi(pa[st][r]);
     }
+    l0 += ls[0] + ls[2];
+    l1 += ls[1] + ls[3];
 
     // O += P V: 16 keys (16 rows of each v tile) a step, v's two 32-column tiles
     wgmma_fence();

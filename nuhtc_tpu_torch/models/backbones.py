@@ -233,6 +233,23 @@ class ViTBlock(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def vit_blocks(dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool, use_rel_pos: bool,
+               windows: Sequence[int], grid: Tuple[int, int]) -> nn.ModuleList:
+    """One ``ViTBlock`` an entry of ``windows`` (its window side, 0 for
+    global attention) over an h × w token ``grid``."""
+    return nn.ModuleList(ViTBlock(dim, num_heads, mlp_ratio, qkv_bias, use_rel_pos, ws, grid)
+                         for ws in windows)
+
+
+def resized_pos(pos: torch.Tensor, grid: int, resize_h: torch.Tensor,
+                resize_w: torch.Tensor) -> torch.Tensor:
+    """A (1, grid², C) position table (no class token) resized by the cubic
+    matrices ``resize_h`` (grid, h) and ``resize_w`` (grid, w) → (1, h, w, C)
+    in f32."""
+    pos = pos.reshape(1, grid, grid, -1).float()
+    return torch.einsum("bhwc,hH,wW->bHWc", pos, resize_h.float(), resize_w.float())
+
+
 class ViTPatchEmbed(nn.Module):
     def __init__(self, in_channels: int, dim: int, patch_size: int):
         super().__init__()
@@ -274,10 +291,9 @@ class ViT(nn.Module):
             self.pos_embed = nn.Parameter(torch.zeros(1, n_pos, embed_dims))
             resize = torch.from_numpy(cubic_resize_matrix(self.grid, tokens))
             self.register_buffer("pos_resize", resize, persistent=False)
-        self.blocks = nn.ModuleList(
-            ViTBlock(embed_dims, num_heads, mlp_ratio, qkv_bias, use_rel_pos,
-                     window_size if i in window_block_indexes else 0, (tokens, tokens))
-            for i in range(depth))
+        self.blocks = vit_blocks(embed_dims, num_heads, mlp_ratio, qkv_bias, use_rel_pos,
+                                 [window_size if i in window_block_indexes else 0
+                                  for i in range(depth)], (tokens, tokens))
 
     def forward(self, img: torch.Tensor, generator: torch.Generator | None = None):
         """img (B, H, W, 3) normalized → tuple of (B, H/16, W/16, C) maps;
@@ -288,9 +304,7 @@ class ViT(nn.Module):
             if x.shape[1:3] != (self.tokens, self.tokens):
                 raise ValueError(f"ViT: a {tuple(x.shape[1:3])} token grid, where the "
                                  f"position table is resized to {self.tokens}²")
-            pos = pos.reshape(1, self.grid, self.grid, -1).float()
-            m = self.pos_resize.float()
-            x = x + torch.einsum("bhwc,hH,wW->bHWc", pos, m, m).to(x.dtype)
+            x = x + resized_pos(pos, self.grid, self.pos_resize, self.pos_resize).to(x.dtype)
         outs = []
         for i, blk in enumerate(self.blocks):
             x = blk(x)

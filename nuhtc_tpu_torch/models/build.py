@@ -23,6 +23,8 @@ from nuhtc_tpu_torch.models.detector import NuHTC
 from nuhtc_tpu_torch.models.layers import NormedLinear
 from nuhtc_tpu_torch.models.mask_rcnn import MaskRCNN  # noqa: F401  (registers it)
 from nuhtc_tpu_torch.models.swin import WindowMSA
+from nuhtc_tpu_torch.models.vit_adapter import (FrozenBatchNorm2d, Injector, OutputNorm,
+                                                ViTAdapter)
 from nuhtc_tpu_torch.registry import DETECTORS
 
 
@@ -123,7 +125,11 @@ def build_detector(model_cfg: Dict[str, Any], test_cfg: Dict[str, Any] | None = 
 def init_random_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights for runs without a checkpoint: weights of linear and
     conv layers normal with std 1/sqrt(fan_in), biases 0, norms 1/0, the
-    relative-position bias tables std 0.02, the cosine classifier std 0.01."""
+    relative-position bias tables std 0.02, the cosine classifier std 0.01;
+    a ViT-Adapter's frozen batch-norms 1/0 with running statistics 0/1 (its
+    output norms' weight std ``OutputNorm.WEIGHT_STD``), its level embeddings
+    std 1 and its injectors' γ 1 (the published γ is 0, which would switch
+    the injectors off)."""
     for m in model.modules():
         if isinstance(m, NormedLinear):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * 0.01)
@@ -140,4 +146,15 @@ def init_random_weights(model: nn.Module, generator: torch.Generator) -> nn.Modu
         elif isinstance(m, WindowMSA):
             t = m.relative_position_bias_table
             t.copy_(torch.randn(t.shape, generator=generator) * 0.02)
+        elif isinstance(m, FrozenBatchNorm2d):
+            for t, v in ((m.weight, 1.0), (m.bias, 0.0), (m.running_mean, 0.0),
+                         (m.running_var, 1.0)):
+                t.fill_(v)
+            if isinstance(m, OutputNorm):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * OutputNorm.WEIGHT_STD)
+        elif isinstance(m, ViTAdapter):
+            m.level_embed.copy_(torch.randn(m.level_embed.shape, generator=generator))
+        elif isinstance(m, Injector):
+            m.gamma.fill_(1.0)
     return model

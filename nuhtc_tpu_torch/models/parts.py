@@ -20,7 +20,8 @@ from typing import Any, Dict, Tuple
 
 from torch import nn
 
-from nuhtc_tpu_torch.models import backbones, extra_heads, fpn, swin  # noqa: F401  (register)
+from nuhtc_tpu_torch.models import (  # noqa: F401  (register)
+    backbones, extra_heads, fpn, swin, vit_adapter)
 from nuhtc_tpu_torch.registry import BACKBONES, NECKS, Registry
 
 # the reference's keys for freezing, checkpointing, loading and dropout

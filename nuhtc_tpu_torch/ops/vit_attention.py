@@ -30,9 +30,10 @@ On a CUDA tensor ``vit_attention`` launches the kernel (bf16, head dim 64,
 with the tables a grid of at most 64 a side, no gradient: the kernel has
 no backward) and raises on anything else; on a CPU tensor it runs
 ``vit_attention_plain``, the same arithmetic in plain PyTorch with the
-kernel's roundings: the bias, the scores and the softmax in f32 from the
-input's values, P in the input's dtype (bf16 in the kernel), f32 sums, the
-output in the input's dtype. ``vit_attention_unfused`` has the roundings of
+kernel's roundings: the bias, the scores and the softmax's exponentials in
+f32 from the input's values, P unnormalised in the input's dtype (bf16 in
+the kernel), f32 sums, divided by the sum of that P, the output in the
+input's dtype. ``vit_attention_unfused`` has the roundings of
 ``ViTAttention``'s plain path instead; the kernel's error against the f32
 twin is held to that path's (the tests, ``chip_smoke.py``).
 """
@@ -78,8 +79,9 @@ def vit_attention_plain(qkv: torch.Tensor, b: int, h: int, w: int, nh: int,
         bias_h, bias_w = rel_bias(q, h, w, rel_h.float(), rel_w.float())
         ky, kx = key_grid(h, w, qkv.device)
         attn = attn + (bias_h[..., ky] + bias_w[..., kx])
-    p = attn.softmax(dim=-1).to(qkv.dtype).float()
-    return torch.einsum("bhnm,bmhd->bnhd", p, v).reshape(b, n, c).to(qkv.dtype)
+    p = (attn - attn.amax(dim=-1, keepdim=True)).exp().to(qkv.dtype).float()
+    out = torch.einsum("bhnm,bmhd->bnhd", p, v) / p.sum(-1).transpose(1, 2)[..., None]
+    return out.reshape(b, n, c).to(qkv.dtype)
 
 
 def vit_attention_unfused(qkv: torch.Tensor, b: int, h: int, w: int, nh: int,

@@ -11,7 +11,9 @@ On a card (``cuda`` marker, ``python -m pytest tests/test_torch_vit_attention.py
 -m cuda``): the kernel against the f32 twin on the same bf16 q, k, v and
 tables, at the cell's shapes (8 × 12 heads × 4,096 tokens on a 64 × 64 grid;
 200 windows × 12 heads × 196 tokens on 14 × 14) with the relative-position
-tables drawn at std 0.02 and at 1.0, and at the edge shapes. The tolerance:
+tables drawn at std 0.02 and at 1.0, and at the edge shapes; without the
+tables (ViT-Adapter-B's blocks) at the same shapes and on zero-padded
+windows of 70² through a qkv projection. The tolerance:
 the kernel's largest and mean absolute error against f32 are no larger than
 those of the port's bf16 plain path (``vit_attention_unfused``: bf16 bias,
 scores, biased scores and P, the softmax in f32; on the CPU it equals the
@@ -164,6 +166,39 @@ def _held_to_bf16_plain(qkv, b, h, w, nh, rel_h, rel_w):
 def test_kernel_at_the_cells_shapes(cuda, b, h, w, table_std):
     qkv, rel_h, rel_w = _inputs(cuda, b, 12, h, w, True, table_std)
     _held_to_bf16_plain(qkv, b, h, w, 12, rel_h, rel_w)
+
+
+def _padded_window_qkv(device):
+    """bf16 qkv of ViT-Adapter-B's windows at 1024²: eight 64² maps, 768
+    wide, zero-padded to 70² and cut into 200 windows of 14², through a qkv
+    projection with a bias (the padded tokens' q, k and v are the bias)."""
+    from nuhtc_tpu_torch.models.backbones import vit_window_partition
+
+    attn = _module(12, 14, 14, False, seed=2).to(device)
+    with torch.no_grad():
+        attn.qkv.bias.normal_(0.0, 0.5)
+        gen = torch.Generator(device=device).manual_seed(2)
+        x = torch.randn(8, 64, 64, 12 * HD, generator=gen, device=device)
+        wins, pad_hw = vit_window_partition(x, 14)
+        assert pad_hw == (70, 70) and wins.shape[0] == 200
+        return attn.qkv(wins.reshape(200, 196, 12 * HD)).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["global-64x64", "windows-14x14", "padded-windows-70x70"])
+def test_kernel_without_tables_at_the_adapter_cells_shapes(cuda, case):
+    """ViT-Adapter-B's blocks have no relative-position tables: the kernel's
+    path without them, at 8 × 12 heads × 4,096 tokens (global), 200 windows
+    × 12 heads × 196 tokens, and on the padded windows the model makes,
+    where many keys and values equal the qkv bias: there the bf16 rounding
+    of their equal weights adds up, and the kernel divides by the sum of
+    the rounded weights so that it cancels."""
+    if case == "padded-windows-70x70":
+        b, h, w, qkv = 200, 14, 14, _padded_window_qkv(cuda)
+    else:
+        b, h, w = (8, 64, 64) if case == "global-64x64" else (200, 14, 14)
+        qkv = _inputs(cuda, b, 12, h, w, False, 0.0)[0]
+    _held_to_bf16_plain(qkv, b, h, w, 12, None, None)
 
 
 EDGE = [(1, 2, 5, 7, True), (2, 3, 9, 9, True), (1, 2, 3, 64, True), (2, 2, 10, 10, False),
